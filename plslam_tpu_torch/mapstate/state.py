@@ -1,0 +1,132 @@
+"""The SLAM map as one dataclass of fixed-shape tensors.
+
+Port of `plslam_tpu/mapstate/state.py`: structure-of-arrays with capacities
+and validity masks. The field names, shapes and dtypes are those of the JAX
+`MapState`, so a map crosses between the packages field by field
+(`mapstate/checkpoint.from_numpy`). `dataclasses.replace` stands in for
+`_replace`; functions documented as in-place update the tensors directly.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import torch
+
+from ..vocab import bow
+
+
+class MapConfig(NamedTuple):
+    max_kf: int = 48          # keyframe capacity
+    max_pt: int = 12288       # map point capacity
+    max_ln: int = 1024        # map line capacity
+    n_kp: int = 1024          # keypoint slots per frame
+    n_lf: int = 256           # line-feature slots per frame
+    n_levels: int = 8
+    scale: float = 1.2
+
+
+@dataclasses.dataclass
+class MapState:
+    # --- map points ---
+    pt_xyz: torch.Tensor       # (P, 3) f32
+    pt_desc: torch.Tensor      # (P, 256) u8 representative descriptor
+    pt_normal: torch.Tensor    # (P, 3) mean viewing direction
+    pt_min_dist: torch.Tensor  # (P,) scale-invariance range
+    pt_max_dist: torch.Tensor  # (P,)
+    pt_valid: torch.Tensor     # (P,) bool
+    pt_visible: torch.Tensor   # (P,) i32 frustum-visible count
+    pt_found: torch.Tensor     # (P,) i32 actually-matched count
+    pt_first_kf: torch.Tensor  # (P,) i32
+    pt_n_obs: torch.Tensor     # (P,) i32
+    pt_desc_acc: torch.Tensor  # (P, 256) u8 bit-vote counts
+    pt_desc_cnt: torch.Tensor  # (P,) i32 samples accumulated
+    # --- map lines (two endpoints) ---
+    ln_xyz: torch.Tensor       # (L, 2, 3)
+    ln_desc: torch.Tensor      # (L, 256) u8
+    ln_valid: torch.Tensor     # (L,) bool
+    ln_visible: torch.Tensor   # (L,) i32
+    ln_found: torch.Tensor     # (L,) i32
+    ln_first_kf: torch.Tensor  # (L,) i32
+    ln_n_obs: torch.Tensor     # (L,) i32
+    ln_cond: torch.Tensor      # (L,) f32 triangulation-conditioning weight
+    # --- keyframes ---
+    kf_T: torch.Tensor         # (K, 4, 4) world -> cam
+    kf_valid: torch.Tensor     # (K,) bool
+    kf_frame_id: torch.Tensor  # (K,) i32
+    kf_uv: torch.Tensor        # (K, N, 2) undistorted keypoints
+    kf_octave: torch.Tensor    # (K, N) i32
+    kf_angle: torch.Tensor     # (K, N) f32
+    kf_desc: torch.Tensor      # (K, N, 256) u8
+    kf_kp_valid: torch.Tensor  # (K, N) bool
+    kf_pt_idx: torch.Tensor    # (K, N) i32 map point per keypoint (-1)
+    kf_ur: torch.Tensor        # (K, N) f32 right-image column (<= 0 mono)
+    # --- keyframe line features ---
+    kf_ln_uv: torch.Tensor     # (K, M, 2, 2)
+    kf_ln_l2d: torch.Tensor    # (K, M, 3)
+    kf_ln_desc: torch.Tensor   # (K, M, 256) u8
+    kf_ln_valid: torch.Tensor  # (K, M) bool
+    kf_ln_idx: torch.Tensor    # (K, M) i32 map line per slot (-1)
+    kf_bow: torch.Tensor       # (K, N_WORDS) f32 place-recognition signature
+    # --- counters ---
+    n_kf: torch.Tensor         # () i32
+    n_pt: torch.Tensor         # () i32
+    n_ln: torch.Tensor         # () i32
+
+
+FIELDS = tuple(f.name for f in dataclasses.fields(MapState))
+
+_F32, _U8, _B, _I32 = torch.float32, torch.uint8, torch.bool, torch.int32
+
+
+def field_specs(cfg: MapConfig):
+    """{field: (shape, dtype)} of a map with capacities `cfg`."""
+    P, L, K, N, M = cfg.max_pt, cfg.max_ln, cfg.max_kf, cfg.n_kp, cfg.n_lf
+    return {
+        "pt_xyz": ((P, 3), _F32), "pt_desc": ((P, 256), _U8),
+        "pt_normal": ((P, 3), _F32), "pt_min_dist": ((P,), _F32),
+        "pt_max_dist": ((P,), _F32), "pt_valid": ((P,), _B),
+        "pt_visible": ((P,), _I32), "pt_found": ((P,), _I32),
+        "pt_first_kf": ((P,), _I32), "pt_n_obs": ((P,), _I32),
+        "pt_desc_acc": ((P, 256), _U8), "pt_desc_cnt": ((P,), _I32),
+        "ln_xyz": ((L, 2, 3), _F32), "ln_desc": ((L, 256), _U8),
+        "ln_valid": ((L,), _B), "ln_visible": ((L,), _I32),
+        "ln_found": ((L,), _I32), "ln_first_kf": ((L,), _I32),
+        "ln_n_obs": ((L,), _I32), "ln_cond": ((L,), _F32),
+        "kf_T": ((K, 4, 4), _F32), "kf_valid": ((K,), _B),
+        "kf_frame_id": ((K,), _I32), "kf_uv": ((K, N, 2), _F32),
+        "kf_octave": ((K, N), _I32), "kf_angle": ((K, N), _F32),
+        "kf_desc": ((K, N, 256), _U8), "kf_kp_valid": ((K, N), _B),
+        "kf_pt_idx": ((K, N), _I32), "kf_ur": ((K, N), _F32),
+        "kf_ln_uv": ((K, M, 2, 2), _F32), "kf_ln_l2d": ((K, M, 3), _F32),
+        "kf_ln_desc": ((K, M, 256), _U8), "kf_ln_valid": ((K, M), _B),
+        "kf_ln_idx": ((K, M), _I32), "kf_bow": ((K, bow.N_WORDS), _F32),
+        "n_kf": ((), _I32), "n_pt": ((), _I32), "n_ln": ((), _I32),
+    }
+
+
+def allocate(cfg: MapConfig, device) -> MapState:
+    """An empty map with capacities `cfg` on `device`."""
+    t = {name: torch.zeros(shape, dtype=dtype, device=device)
+         for name, (shape, dtype) in field_specs(cfg).items()}
+    t["ln_cond"].fill_(1.0)
+    t["kf_T"].copy_(torch.eye(4, device=device).expand_as(t["kf_T"]))
+    t["kf_pt_idx"].fill_(-1)
+    t["kf_ur"].fill_(-1.0)
+    t["kf_ln_l2d"].copy_(torch.tensor([1.0, 0.0, -1e9], device=device)
+                         .expand_as(t["kf_ln_l2d"]))
+    t["kf_ln_idx"].fill_(-1)
+    return MapState(**t)
+
+
+def append_slots(counter, create_mask, capacity: int):
+    """Allocate consecutive slots for masked new items.
+
+    Returns (slot_idx (N,), ok (N,) bool, new_counter). Items beyond capacity
+    are dropped (ok=False) and point at slot capacity-1."""
+    offs = torch.cumsum(create_mask.to(torch.int32), 0, dtype=torch.int32) - 1
+    slots = counter + offs
+    ok = create_mask & (slots < capacity)
+    new_counter = torch.clamp(
+        counter + create_mask.sum(dtype=torch.int32), max=capacity)
+    return torch.where(ok, slots, capacity - 1), ok, new_counter

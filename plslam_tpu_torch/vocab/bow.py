@@ -1,0 +1,39 @@
+"""Bag-of-binary-words signatures (LSH word assignment).
+
+Port of the word and histogram part of `plslam_tpu/vocab/bow.py`: a word is
+12 fixed bit positions of the 256-bit descriptor, drawn from the same numpy
+seed as the JAX package, and a frame signature is the L1-normalized word
+histogram. Keyframe insertion stores it in `MapState.kf_bow`.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+N_WORDS_BITS = 12            # 4096 words
+N_WORDS = 1 << N_WORDS_BITS
+
+
+def _make_bit_selection(seed: int = 271828) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    return rng.choice(256, size=N_WORDS_BITS, replace=False).astype(np.int32)
+
+
+BIT_SEL = _make_bit_selection()
+
+
+def words_of(desc_bits):
+    """(N, 256) {0,1} -> (N,) int32 word ids."""
+    sel = torch.as_tensor(BIT_SEL, dtype=torch.long, device=desc_bits.device)
+    weights = 1 << torch.arange(N_WORDS_BITS, dtype=torch.int32,
+                                device=desc_bits.device)
+    return torch.sum(desc_bits[..., sel].to(torch.int32) * weights, dim=-1,
+                     dtype=torch.int32)
+
+
+def bow_vector(desc_bits, valid):
+    """(N,256),(N,) -> (N_WORDS,) L1-normalized word histogram."""
+    w = words_of(desc_bits).long()
+    hist = torch.zeros(N_WORDS, dtype=torch.float32, device=desc_bits.device)
+    hist.index_add_(0, w, valid.to(torch.float32))
+    return hist / hist.sum().clamp_min(1e-9)

@@ -1,0 +1,109 @@
+"""Parity of the PyTorch port's geometry against plslam_tpu: SE3 algebra and
+the pinhole/radtan camera. Tolerance: atol 1e-5 (float32 transcendental and
+summation order differ between XLA and PyTorch on the CPU)."""
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from plslam_tpu.geometry import camera as jcam, se3 as jse3
+from plslam_tpu_torch.geometry import camera as tcam, se3 as tse3
+
+ATOL = 1e-5
+
+
+def _tangents():
+    """Random tangents plus the corners: zero, theta^2 below the 1e-8 Taylor
+    switch, just above it, and rotations near pi."""
+    rng = np.random.default_rng(0)
+    xi = rng.normal(0, 0.6, (32, 6))
+    corners = [np.zeros(6), [3e-5, -2e-5, 1e-5, 0.1, -0.2, 0.3],
+               [1e-4, 0, 0, 0.5, 0, 0], [2e-9, 1e-9, -3e-9, 1.0, 2.0, -1.0]]
+    for axis in np.eye(3):
+        corners.append(np.concatenate([(np.pi - 1e-3) * axis, [0.2, -0.1, 0.4]]))
+    corners.append(np.concatenate(
+        [(np.pi - 2e-3) * np.array([1.0, 2.0, -2.0]) / 3.0, [0.0, 0.0, 1.0]]))
+    return np.concatenate([xi, np.asarray(corners)]).astype(np.float32)
+
+
+def _both(fn_name, *arrays):
+    t = getattr(tse3, fn_name)(*[torch.from_numpy(a.copy()) for a in arrays])
+    j = getattr(jse3, fn_name)(*[jnp.asarray(a) for a in arrays])
+    return np.asarray(t), np.asarray(j)
+
+
+@pytest.mark.parametrize("fn_name", ["se3_exp", "so3_exp", "left_jacobian",
+                                     "left_jacobian_inv", "hat"])
+def test_tangent_functions(fn_name):
+    xi = _tangents()
+    arg = xi if fn_name == "se3_exp" else xi[:, :3].copy()
+    t, j = _both(fn_name, arg)
+    np.testing.assert_allclose(t, j, atol=ATOL)
+
+
+def test_se3_log_and_roundtrip():
+    T = np.asarray(jse3.se3_exp(jnp.asarray(_tangents())))
+    t, j = _both("se3_log", T)
+    np.testing.assert_allclose(t, j, atol=ATOL)
+    back = np.asarray(tse3.se3_exp(torch.from_numpy(t)))
+    np.testing.assert_allclose(back, T, atol=ATOL)
+
+
+def test_se3_inv_and_transform():
+    rng = np.random.default_rng(1)
+    T = np.asarray(jse3.se3_exp(jnp.asarray(_tangents())))
+    t, j = _both("se3_inv", T)
+    np.testing.assert_allclose(t, j, atol=ATOL)
+    pts = rng.uniform(-3, 3, (T.shape[0], 50, 3)).astype(np.float32)
+    t, j = _both("transform", T, pts)
+    np.testing.assert_allclose(t, j, atol=ATOL)
+    t, j = _both("transform", T, pts[:, 0])
+    np.testing.assert_allclose(t, j, atol=ATOL)
+
+
+# TUM freiburg1 calibration (examples/TUM1.yaml)
+TUM1 = dict(fx=517.306408, fy=516.469215, cx=318.643040, cy=255.313989,
+            k1=0.262383, k2=-0.953104, p1=-0.005358, p2=0.002628, k3=1.163314)
+
+
+def test_undistort_and_project_tum1():
+    rng = np.random.default_rng(2)
+    uv = np.stack([rng.uniform(0, 640, 500), rng.uniform(0, 480, 500)],
+                  -1).astype(np.float32)
+    ct, cj = tcam.Camera.create(**TUM1), jcam.Camera.create(**TUM1)
+    np.testing.assert_allclose(
+        np.asarray(tcam.undistort_pixels(ct, torch.from_numpy(uv))),
+        np.asarray(jcam.undistort_pixels(cj, jnp.asarray(uv))), atol=ATOL)
+    xn = ((uv - [320.0, 240.0]) / 600.0).astype(np.float32)
+    np.testing.assert_allclose(
+        np.asarray(tcam.distort_normalized(ct, torch.from_numpy(xn))),
+        np.asarray(jcam.distort_normalized(cj, jnp.asarray(xn))), atol=ATOL)
+    Xc = np.concatenate([xn * 3.0, np.full((500, 1), 3.0)], -1).astype(np.float32)
+    for distort in (False, True):
+        np.testing.assert_allclose(
+            np.asarray(tcam.project(ct, torch.from_numpy(Xc), distort)),
+            np.asarray(jcam.project(cj, jnp.asarray(Xc), distort)),
+            atol=ATOL)
+
+
+@pytest.mark.parametrize("layout,kind", [("room", "orbit"), ("box", "circle"),
+                                         ("wall", "forward")])
+def test_synthetic_scene_trajectory_and_render(layout, kind):
+    """The port's renderer is the JAX package's numpy code; only the
+    trajectory's SE3 exponential is the port's (atol 1e-6). Rendering one pose
+    gives the same image and depth."""
+    from plslam_tpu.datasets import synthetic as jsyn
+    from plslam_tpu_torch.datasets import synthetic as tsyn
+
+    kw = dict(seed=3, width=160, height=120, fx=125.0, fy=125.0, layout=layout)
+    st, sj = tsyn.make_scene(**kw), jsyn.make_scene(**kw)
+    for pt, pj in zip(st.planes, sj.planes):
+        for a, b in zip(pt, pj):
+            np.testing.assert_array_equal(a, b)
+    for a, b in zip(st[1:], sj[1:]):
+        np.testing.assert_array_equal(a, b)
+    Tt, Tj = tsyn.trajectory(9, kind), jsyn.trajectory(9, kind)
+    assert Tt.dtype == Tj.dtype == np.float32
+    np.testing.assert_allclose(Tt, Tj, atol=1e-6)
+    for a, b in zip(tsyn.render_rgbd(st, Tj[4]), jsyn.render_rgbd(sj, Tj[4])):
+        np.testing.assert_array_equal(a, b)
