@@ -5,22 +5,33 @@
 
 1. builds the gated Hamming top-2 kernel (K1) from `plslam_tpu_torch/csrc`;
 2. checks K1 against its plain PyTorch version on the card, bit for bit, at
-   (N=200, P=700) and at the slice's (N=1024, P=12288), gated and gates-off,
-   and times the device work of the kernel launch on packed descriptors, of
-   the wrapper with its packing, and of the plain version (CUDA events around
-   batches of 10 calls queued behind a spin kernel, median of 20 batches,
-   after a warm-up batch);
-3. drives the per-frame tracking step over a rendered 48-frame 640x480
-   sequence at the default configuration (1024 features, 8 levels, a
+   (N=200, P=700) and at the tracking step's (N=1024, P=12288), gated and
+   gates-off, and at `match_frames`' shape (the 1024 x 1024 features of
+   frames 0 and 2 of the system sequence, 100 px window); it times the
+   device work of the kernel launch on packed descriptors, of the wrapper
+   with its packing, and of the plain version (CUDA events around batches of
+   10 calls queued behind a spin kernel, median of 20 batches, after a
+   warm-up batch);
+3. the tracking slice: the per-frame tracking step over a rendered 48-frame
+   640x480 sequence at the default configuration (1024 features, 8 levels, a
    12288-point map): a depth bootstrap on frame 0, then extraction ->
    undistortion -> local-map tracking on frames 1-47, with a depth keyframe
    every 8th frame. It checks >= 30 inliers per frame, an ATE below 5% of the
    path length (no alignment: the map is metric and frame 0 is the origin),
-   and that every search of the step went through K1 (3 per frame).
+   and that every search of the step went through K1 (3 per frame);
+4. the system phase: `System.track_monocular` over the 60-frame system
+   sequence (`make_scene(seed=1)`, orbit) at the `SLAMConfig` defaults with
+   the renderer's camera and lines, loop closing and map growth off. It
+   checks initialization within the first 10 frames, no LOST frame after
+   it, >= 3 keyframes, > 150 map points, an ATE after Sim3 alignment below
+   5% of the span, and exactly 3 K1 launches per tracked frame plus one
+   per initialization match; it prints per-stage host times (each stage
+   synchronized), frames, counts and peak device memory.
 
 Any failed check exits non-zero. The last line is the device JSON; the line
-before it lists the kernels with their launch counts and timings. There is no
-CPU path: without a CUDA device the script exits non-zero.
+before it lists the kernels with their launch counts (both phases) and
+timings. There is no CPU path: without a CUDA device the script exits
+non-zero.
 """
 from __future__ import annotations
 
@@ -39,6 +50,10 @@ N_FRAMES = 48
 KF_EVERY = 8
 MIN_INLIERS = 30
 ATE_FRACTION = 0.05
+SYSTEM_FRAMES = 60
+INIT_WITHIN = 10      # frames
+MIN_KEYFRAMES = 3
+MIN_POINTS = 150      # valid map points (tests/test_e2e.py's bar)
 
 
 def fail(msg: str):
@@ -120,34 +135,59 @@ def random_search_inputs(rng, n: int, p: int) -> dict:
         d_visible=rng.random(p) > 0.3)
 
 
-def check_kernel(gm, device):
-    """K1 against its plain version: exact equality, and timings."""
+def match_frames_inputs(rng, n: int = 1024) -> dict:
+    """Search inputs shaped like `match_frames`' call of K1, as numpy
+    arrays: two frames' n keypoints in a 640x480 image, a 100 px window
+    around every keypoint of the second, octaves 0-7."""
+    a = random_search_inputs(rng, n, n)
+    a["d_radius"] = np.full(n, 100.0, np.float32)
+    a["d_level"] = rng.integers(0, 8, n).astype(np.int32)
+    return a
+
+
+def match_frames_case(feats1, feats2) -> dict:
+    """K1's inputs as `tracking.match_frames(feats1, feats2)` passes them."""
+    return dict(q_bits=feats1.desc, q_uv=feats1.uv, q_oct=feats1.octave,
+                q_valid=feats1.valid, d_bits=feats2.desc, d_uv=feats2.uv,
+                d_radius=torch.full((feats2.uv.shape[0],), 100.0,
+                                    device=feats2.uv.device),
+                d_level=feats2.octave, d_visible=feats2.valid)
+
+
+def check_kernel(gm, device, match_case):
+    """K1 against its plain version: exact equality, and timings, on random
+    inputs at two sizes (gated and gates-off) and on `match_case`."""
     rng = np.random.default_rng(0)
-    max_err, timing = 0, {}
+    cases = []
     for n, p in ((200, 700), (1024, 12288)):
         a = {k: torch.from_numpy(v).to(device)
              for k, v in random_search_inputs(rng, n, p).items()}
-        for gated in (True, False):
-            got = gm.gated_hamming_best2(**a, gated=gated)
-            want = gm.gated_hamming_best2_reference(**a, gated=gated)
-            torch.cuda.synchronize()
-            for name, x, y in zip(("idx", "best", "second"), got, want):
-                err = int((x.long() - y.long()).abs().max())
-                max_err = max(max_err, err)
-                if err:
-                    fail(f"K1 N={n} P={p} gated={gated}: {name} differs from "
-                         f"the plain version (max |diff| {err})")
-            packed = dict(a, q_bits=gm.pack_bits(a["q_bits"]),
-                          d_bits=gm.pack_bits(a["d_bits"]))
-            k_ms = cuda_ms(lambda: gm.launch_packed(*packed.values(),
-                                                    gated=gated))
-            w_ms = cuda_ms(lambda: gm.gated_hamming_best2(**a, gated=gated))
-            p_ms = cuda_ms(lambda: gm.gated_hamming_best2_reference(
-                **a, gated=gated))
-            timing[(n, p, gated)] = (k_ms, p_ms)
-            print(f"K1 N={n} P={p} gated={gated}: bit-equal to the plain "
-                  f"version; ms per call: kernel {k_ms:.4f}, wrapper with "
-                  f"packing {w_ms:.4f}, plain {p_ms:.4f}")
+        cases += [((n, p, gated), f"N={n} P={p} gated={gated}", a, gated)
+                  for gated in (True, False)]
+    cases.append(("match_frames", "match_frames N=1024 P=1024 r=100 "
+                  "gated=True", match_case, True))
+    max_err, timing = 0, {}
+    for key, label, a, gated in cases:
+        got = gm.gated_hamming_best2(**a, gated=gated)
+        want = gm.gated_hamming_best2_reference(**a, gated=gated)
+        torch.cuda.synchronize()
+        for name, x, y in zip(("idx", "best", "second"), got, want):
+            err = int((x.long() - y.long()).abs().max())
+            max_err = max(max_err, err)
+            if err:
+                fail(f"K1 {label}: {name} differs from the plain version "
+                     f"(max |diff| {err})")
+        packed = dict(a, q_bits=gm.pack_bits(a["q_bits"]),
+                      d_bits=gm.pack_bits(a["d_bits"]))
+        k_ms = cuda_ms(lambda: gm.launch_packed(*packed.values(),
+                                                gated=gated))
+        w_ms = cuda_ms(lambda: gm.gated_hamming_best2(**a, gated=gated))
+        p_ms = cuda_ms(lambda: gm.gated_hamming_best2_reference(
+            **a, gated=gated))
+        timing[key] = (k_ms, p_ms)
+        print(f"K1 {label}: bit-equal to the plain version; ms per call: "
+              f"kernel {k_ms:.4f}, wrapper with packing {w_ms:.4f}, plain "
+              f"{p_ms:.4f}")
     return max_err, timing
 
 
@@ -244,6 +284,129 @@ def centers(Ts):
     return np.stack([-T[:3, :3].T @ T[:3, 3] for T in Ts])
 
 
+def render_system_sequence(n_frames=SYSTEM_FRAMES):
+    """The system sequence: `make_scene(seed=1)` along
+    `trajectory(60, "orbit")`, 640x480, fx = fy = 500 (the sequence of the
+    JAX package's end-to-end scripts)."""
+    from plslam_tpu_torch.datasets import synthetic
+    scene = synthetic.make_scene(seed=1)
+    Ts = synthetic.trajectory(n_frames, "orbit")
+    return Ts, [synthetic.render(scene, T) for T in Ts]
+
+
+def system_config():
+    """`SLAMConfig` defaults (TUM fr1 widths: 640x480, 1024 features, 8
+    levels, 48 keyframes x 12288 points, an 8 x 3072 BA window) with the
+    renderer's camera, and lines, loop closing and map growth off."""
+    from plslam_tpu_torch.models.system import SLAMConfig
+    return SLAMConfig(fx=FX, fy=FX, cx=WIDTH / 2, cy=HEIGHT / 2, k1=0, k2=0,
+                      p1=0, p2=0, k3=0, use_lines=False,
+                      use_loop_closing=False, grow_map=False)
+
+
+def run_system(frames):
+    """`System.track_monocular` over the frames on cuda:0. Each stage
+    (extraction, initialization match and two-view solve, tracking, the
+    keyframe chain and the local BAs inside it and after initialization) is
+    wrapped to run between two device synchronizations and timed on the
+    host clock; K1's launch count is set to 0 just before the run and read
+    just after."""
+    from plslam_tpu_torch.models import mapping
+    from plslam_tpu_torch.models.system import System
+    from plslam_tpu_torch.ops import gated_match
+
+    device = torch.device("cuda", 0)
+    slam = System(system_config(), device=device)
+    times = {k: [] for k in ("extract", "match", "two_view", "init_ba",
+                             "track", "keyframe", "local_ba")}
+
+    def timed(fn, name):
+        def wrapper(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            times[name].append(time.perf_counter() - t0)
+            return out
+        return wrapper
+
+    for attr, name in (("_extract", "extract"), ("_match_frames", "match"),
+                       ("_init_two_view", "two_view"),
+                       ("_track_update", "track"),
+                       ("_process_kf", "keyframe"), ("_local_ba", "init_ba")):
+        setattr(slam, attr, timed(getattr(slam, attr), name))
+    chain_ba = mapping.run_local_ba
+    mapping.run_local_ba = timed(chain_ba, "local_ba")   # inside the chain
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    init, states = None, []
+    gated_match.gated_hamming_best2.launches = 0
+    try:
+        for i, img in enumerate(frames):
+            slam.track_monocular(img, i / 30.0)
+            states.append(slam.state)
+            if init is None and slam.state == "OK":
+                init = i
+    finally:
+        mapping.run_local_ba = chain_ba
+    launches = gated_match.gated_hamming_best2.launches
+    traj = dict(slam.trajectory)
+    idx = [i for i in range(len(frames)) if i / 30.0 in traj]
+    return dict(slam=slam, init=init, states=states, times=times,
+                launches=launches, idx=idx,
+                poses=np.stack([traj[i / 30.0] for i in idx]),
+                peak=torch.cuda.max_memory_allocated(device))
+
+
+def check_system(Ts, out):
+    """The system phase's six checks; returns the ATE and span."""
+    from plslam_tpu_torch.datasets import synthetic
+    slam, init, times = out["slam"], out["init"], out["times"]
+    pct_ms = lambda x, q: 1e3 * float(np.percentile(x, q)) if x else 0.0
+    for name in ("extract", "track", "keyframe", "local_ba"):
+        x = times[name]
+        print(f"system: {name} ms median {pct_ms(x, 50):.2f} p90 "
+              f"{pct_ms(x, 90):.2f} over {len(x)} calls")
+    if init is not None and times["init_ba"]:
+        tv = times["two_view"]
+        print(f"system: init on frame {init}: {1e3 * slam.timings[init]:.2f} "
+              f"ms, of which match {1e3 * times['match'][-1]:.2f} ms, "
+              f"two-view {1e3 * tv[-1]:.2f} ms, initial local BA "
+              f"{1e3 * times['init_ba'][0]:.2f} ms; {len(times['match'])} "
+              f"match and {len(tv)} two-view attempts in all, the first "
+              f"two-view {1e3 * tv[0]:.2f} ms")
+    n_track = len(times["track"])
+    expected = 3 * n_track + len(times["match"])
+    lost = [i for i, s in enumerate(out["states"]) if init is not None
+            and i > init and s != "OK"]
+    idx = out["idx"]
+    ate = synthetic.ate_rmse(out["poses"], Ts[idx])
+    c = centers(Ts[idx])
+    span = float(np.linalg.norm(c[-1] - c[0]))
+    print(f"system: {n_track} frames tracked, {len(idx)} poses, "
+          f"{slam.n_keyframes()} keyframes, {slam.n_map_points()} map points, "
+          f"ATE {ate:.4f} m over a {span:.3f} m span "
+          f"({100 * ate / span:.2f}%), K1 launches {out['launches']} "
+          f"(expected {expected}), peak device memory "
+          f"{out['peak'] / 2**20:.1f} MiB")
+    if init is None or init >= INIT_WITHIN:
+        fail(f"not initialized within the first {INIT_WITHIN} frames "
+             f"(init frame {init})")
+    if lost:
+        fail(f"LOST after initialization on frames {lost}")
+    if slam.n_keyframes() < MIN_KEYFRAMES:
+        fail(f"{slam.n_keyframes()} keyframes (< {MIN_KEYFRAMES})")
+    if slam.n_map_points() <= MIN_POINTS:
+        fail(f"{slam.n_map_points()} map points (<= {MIN_POINTS})")
+    if not ate < ATE_FRACTION * max(span, 0.2):
+        fail(f"ATE {ate:.4f} m is not below {ATE_FRACTION:.0%} of the "
+             f"{span:.3f} m span")
+    if out["launches"] != expected:
+        fail(f"K1 launched {out['launches']} times in the system phase, "
+             f"expected 3 x {n_track} tracked frames + "
+             f"{len(times['match'])} init matches = {expected}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device: the port's kernels need one", file=sys.stderr)
@@ -270,7 +433,16 @@ def main() -> int:
     print(f"build: {lib.relative_to(ROOT)} ready in "
           f"{time.perf_counter() - t0:.2f} s")
 
-    max_err, timing = check_kernel(gm, device)
+    t0 = time.perf_counter()
+    Ts_sys, frames_sys = render_system_sequence()
+    print(f"rendered the {SYSTEM_FRAMES}-frame system sequence in "
+          f"{time.perf_counter() - t0:.1f} s")
+    from plslam_tpu_torch.ops import extract
+    extractor = extract.PointExtractor(extract.ExtractorConfig(), HEIGHT,
+                                       WIDTH).to(device)
+    f0, f2 = (extractor(torch.from_numpy(frames_sys[i].astype(np.uint8))
+                        .to(device).to(torch.float32)) for i in (0, 2))
+    max_err, timing = check_kernel(gm, device, match_frames_case(f0, f2))
 
     t0 = time.perf_counter()
     Ts, frames, depths = render_sequence()
@@ -305,13 +477,19 @@ def main() -> int:
         fail(f"K1 launched {out['launches']} times in the slice, expected "
              f"{3 * (N_FRAMES - 1)}")
 
+    t0 = time.perf_counter()
+    sys_out = run_system(frames_sys)
+    print(f"system: {SYSTEM_FRAMES} frames in {time.perf_counter() - t0:.1f} s")
+    check_system(Ts_sys, sys_out)
+
     k_ms, p_ms = timing[(1024, 12288, True)]
     print(f"card: {card_line()}")
     print(json.dumps({"kernels": [{
         "name": "gated_hamming_best2", "route": "cuda",
         "source": "plslam_tpu_torch/csrc/gated_hamming.cu",
         "replaces": "plslam_tpu/ops/pallas_match.py:115",
-        "launches": out["launches"], "max_abs_err": max_err,
+        "launches": out["launches"] + sys_out["launches"],
+        "max_abs_err": max_err,
         "ms": k_ms, "plain_ms": p_ms}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

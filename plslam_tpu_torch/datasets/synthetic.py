@@ -213,3 +213,21 @@ def render(scene: Scene, T_cw: np.ndarray, bg: float = 24.0,
         return out, zbuf
     return out
 
+
+def ate_rmse(T_est: np.ndarray, T_gt: np.ndarray, align_scale: bool = True):
+    """Absolute trajectory error after Horn (Sim3 with `align_scale`, else
+    SE3) alignment of the camera centers, TUM protocol. T_est / T_gt:
+    (N, 4, 4) world->camera. Returns the RMSE over the camera centers."""
+    c_est = np.stack([-T[:3, :3].T @ T[:3, 3] for T in T_est])
+    c_gt = np.stack([-T[:3, :3].T @ T[:3, 3] for T in T_gt])
+    mu_e, mu_g = c_est.mean(0), c_gt.mean(0)
+    E, G = c_est - mu_e, c_gt - mu_g
+    U, D, Vt = np.linalg.svd(G.T @ E)
+    S = np.eye(3)
+    if np.linalg.det(U) * np.linalg.det(Vt) < 0:
+        S[2, 2] = -1
+    Rot = U @ S @ Vt
+    s = (D * np.diag(S)).sum() / max((E * E).sum(), 1e-12) \
+        if align_scale else 1.0
+    c_al = (s * (Rot @ c_est.T)).T + mu_g - s * Rot @ mu_e
+    return float(np.sqrt((np.linalg.norm(c_al - c_gt, axis=-1) ** 2).mean()))

@@ -36,6 +36,16 @@ class Camera(NamedTuple):
                       f(k3), int(width), int(height))
 
 
+def intrinsics(cam: Camera, device=None):
+    """(3,3) float32 intrinsic matrix K on `device`, built by fill kernels
+    (no host-to-device copy, so no wait for the device)."""
+    f = lambda v: torch.full((), v, dtype=torch.float32, device=device)
+    z = f(0.0)
+    return torch.stack([torch.stack([f(cam.fx), z, f(cam.cx)]),
+                        torch.stack([z, f(cam.fy), f(cam.cy)]),
+                        torch.stack([z, z, f(1.0)])])
+
+
 def distort_normalized(cam: Camera, xn):
     """Apply radtan distortion to normalized coords (...,2) -> (...,2)."""
     x, y = xn[..., 0], xn[..., 1]

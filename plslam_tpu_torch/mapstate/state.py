@@ -119,6 +119,50 @@ def allocate(cfg: MapConfig, device) -> MapState:
     return MapState(**t)
 
 
+def _primary_obs(ms: MapState):
+    """(K, N) bool: keypoint n is a valid binding and the first occurrence
+    of its point id in its row, so each shared point counts once."""
+    K = ms.kf_pt_idx.shape[0]
+    obs = (ms.kf_pt_idx >= 0) & ms.kf_valid[:, None]
+    srt, order = torch.sort(ms.kf_pt_idx, dim=1, stable=True)
+    dup = torch.cat([torch.zeros((K, 1), dtype=torch.bool,
+                                 device=srt.device),
+                     (srt[:, 1:] == srt[:, :-1]) & (srt[:, 1:] >= 0)], dim=1)
+    return obs & torch.empty_like(dup).scatter_(1, order, ~dup)
+
+
+def row_bitmap(rows, n: int):
+    """(C, n) bool: row c is True at every id rows[c, j] >= 0."""
+    C = rows.shape[0]
+    bit = torch.zeros((C, n + 1), dtype=torch.bool, device=rows.device)
+    bit.scatter_(1, torch.where(rows >= 0, rows, n).long(),
+                 torch.ones_like(rows, dtype=torch.bool))
+    return bit[:, :n]
+
+
+def covis_rows(ms: MapState, ks):
+    """(C, K) covisibility rows: shared-map-point counts between the
+    keyframes `ks` (C,) and every keyframe (`KeyFrame::GetCovisibles`).
+    Self-pairs and invalid keyframes read as 0."""
+    P = ms.pt_xyz.shape[0]
+    K = ms.kf_pt_idx.shape[0]
+    ks = ks.long()
+    bit = row_bitmap(ms.kf_pt_idx[ks], P)                  # (C, P)
+    hit = (bit[:, ms.kf_pt_idx.clamp(0, P - 1).long()]
+           & _primary_obs(ms)[None])                       # (C, K, N)
+    w = hit.sum(-1, dtype=torch.int32)                     # (C, K)
+    w = torch.where(torch.arange(K, device=w.device)[None]
+                    == ks.clamp(0, K - 1)[:, None], 0, w)
+    return torch.where(ms.kf_valid[ks][:, None], w, 0)
+
+
+def observers_of_points(ms: MapState):
+    """(K, P) bool incidence: keyframe k observes point p."""
+    obs = (ms.kf_pt_idx >= 0) & ms.kf_valid[:, None] & ms.kf_kp_valid
+    return row_bitmap(torch.where(obs, ms.kf_pt_idx, -1),
+                      ms.pt_xyz.shape[0])
+
+
 def append_slots(counter, create_mask, capacity: int):
     """Allocate consecutive slots for masked new items.
 

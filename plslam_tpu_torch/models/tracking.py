@@ -234,6 +234,29 @@ def track_local_map(cam, ms: MapState, feats: PointFeatures, T_last,
     return result
 
 
+def match_frames(feats1: PointFeatures, feats2: PointFeatures,
+                 max_dist: int = TH_LOW, nn_ratio: float = 0.9,
+                 window: float = 100.0, check_rotation: bool = True):
+    """Frame-to-frame windowed NN matching (`SearchForInitialization`):
+    feats1's keypoints against feats2's inside a `window` px box around the
+    raw (distorted) location, octaves within 1, NN ratio and the rotation
+    histogram. The window, octave and validity gates are K1's gate set, so
+    the search is one `gated_hamming_best2` call.
+
+    Returns (idx2 (N,), ok (N,)) mapping feats1 slots to feats2 slots."""
+    n2 = feats2.uv.shape[0]
+    idx, best, second = gated_match.gated_hamming_best2(
+        feats1.desc, feats1.uv, feats1.octave, feats1.valid, feats2.desc,
+        feats2.uv, torch.full((n2,), window, device=feats2.uv.device),
+        feats2.octave, feats2.valid)
+    ok = (best <= max_dist) & (best.to(torch.float32)
+                               < nn_ratio * second.to(torch.float32))
+    if check_rotation:
+        ok = hamming.rotation_histogram_mask(feats1.angle - feats2.angle[idx],
+                                             ok)
+    return idx, ok
+
+
 def update_point_stats(ms: MapState, result: TrackResult) -> MapState:
     """Add the tracking found/visible counts of points and lines to the map,
     in place; returns `ms`."""

@@ -58,3 +58,24 @@ def dedup_by_target(idx, matched, best, n_targets: int):
     tgt_best.scatter_reduce_(0, torch.where(matched, idx, n_targets).long(),
                              torch.where(matched, key, big), reduce="amin")
     return matched & (key == tgt_best[idx.clamp(0, n_targets - 1).long()])
+
+
+def rotation_histogram_mask(dangle, matched, n_bins: int = 30,
+                            n_keep: int = 3, keep_frac: float = 0.1):
+    """Rotation-consistency filter (`ORBmatcher::ComputeThreeMaxima`):
+    keep the matches whose angle difference `dangle` (N,) radians falls in
+    one of the `n_keep` fullest of `n_bins` bins, the 2nd and 3rd only if
+    they hold >= keep_frac of the fullest. Ties between bins go to the
+    lower bin."""
+    two_pi = 2.0 * torch.pi
+    a = torch.remainder(dangle, two_pi)
+    bin_idx = (a / two_pi * n_bins).to(torch.int32).clamp(0, n_bins - 1).long()
+    hist = torch.zeros(n_bins, dtype=torch.int32, device=dangle.device)
+    hist.index_add_(0, bin_idx, matched.to(torch.int32))
+    top_vals, top_idx = torch.sort(hist, descending=True, stable=True)
+    top_vals, top_idx = top_vals[:n_keep], top_idx[:n_keep]
+    keep = (top_vals.to(torch.float32)
+            >= keep_frac * top_vals[0].to(torch.float32)) & (top_vals > 0)
+    allowed = torch.zeros(n_bins, dtype=torch.bool, device=dangle.device)
+    allowed[top_idx] = keep
+    return matched & allowed[bin_idx]

@@ -7,6 +7,8 @@ histogram. Keyframe insertion stores it in `MapState.kf_bow`.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -22,9 +24,16 @@ def _make_bit_selection(seed: int = 271828) -> np.ndarray:
 BIT_SEL = _make_bit_selection()
 
 
+@functools.lru_cache(maxsize=None)
+def _bit_sel(device: torch.device):
+    # copied to each device once: a copy from host memory waits for the
+    # device's queue to drain
+    return torch.as_tensor(BIT_SEL, dtype=torch.long, device=device)
+
+
 def words_of(desc_bits):
     """(N, 256) {0,1} -> (N,) int32 word ids."""
-    sel = torch.as_tensor(BIT_SEL, dtype=torch.long, device=desc_bits.device)
+    sel = _bit_sel(desc_bits.device)
     weights = 1 << torch.arange(N_WORDS_BITS, dtype=torch.int32,
                                 device=desc_bits.device)
     return torch.sum(desc_bits[..., sel].to(torch.int32) * weights, dim=-1,

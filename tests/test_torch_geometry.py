@@ -107,3 +107,72 @@ def test_synthetic_scene_trajectory_and_render(layout, kind):
     np.testing.assert_allclose(Tt, Tj, atol=1e-6)
     for a, b in zip(tsyn.render_rgbd(st, Tj[4]), jsyn.render_rgbd(sj, Tj[4])):
         np.testing.assert_array_equal(a, b)
+
+
+
+def _two_views(baseline, depth, n=400):
+    """Two world->camera poses `baseline` m apart, points at `depth` (lo,
+    hi) in front of both, their noisy pixels and the JAX projections."""
+    from plslam_tpu.geometry import triangulation as jtri
+    rng = np.random.default_rng(3)
+    T1 = np.asarray(jse3.se3_exp(jnp.asarray([0.01, -0.02, 0.0, 0.0, 0.0, 0.0])))
+    T2 = np.asarray(jse3.se3_exp(jnp.asarray(
+        [0.03, 0.05, -0.01, -baseline, 0.02, 0.05])))
+    X = np.stack([rng.uniform(-2, 2, n), rng.uniform(-1.5, 1.5, n),
+                  rng.uniform(*depth, n)], -1).astype(np.float32)
+    uv = []
+    for T in (T1, T2):
+        Xc = X @ T[:3, :3].T + T[:3, 3]
+        uv.append((Xc[:, :2] / Xc[:, 2:] * 500.0 + [320.0, 240.0]
+                   + rng.normal(0, 0.5, (n, 2))).astype(np.float32))
+    cam = jcam.Camera.create(500.0, 500.0, 320.0, 240.0)
+    P1, P2 = (np.asarray(jtri.projection_matrix(cam, jnp.asarray(T)))
+              for T in (T1, T2))
+    return T1, T2, uv[0], uv[1], P1, P2
+
+
+@pytest.mark.parametrize("baseline,depth", [(2.0, (1.5, 3.0)),
+                                            (0.3, (3.0, 8.0))])
+def test_triangulation_matches_jax(baseline, depth):
+    """projection_matrix, triangulate_dlt, solve3x3, inv3x3 and parallax_cos
+    on the same float32 inputs. Tolerance: 1e-5 relative. Exception, for
+    what it is: the DLT normal equations amplify one-ulp summation
+    differences by their condition number, ~(depth / baseline)^2, so on the
+    narrow-baseline case (a SLAM keyframe pair) both packages are ~5e-5
+    from the float64 solution; there the port must be as close to it as the
+    JAX package (within 1.25x), not to the JAX package."""
+    from plslam_tpu.geometry import triangulation as jtri
+    from plslam_tpu_torch.geometry import triangulation as ttri
+    T1, T2, uv1, uv2, P1j, P2j = _two_views(baseline, depth)
+    t = lambda a: torch.from_numpy(np.array(a))
+    K = np.array([[500.0, 0, 320], [0, 500.0, 240], [0, 0, 1]], np.float32)
+    cam = tcam.Camera.create(500.0, 500.0, 320.0, 240.0)
+    np.testing.assert_array_equal(tcam.intrinsics(cam).numpy(), K)
+    for T, Pj in ((T1, P1j), (T2, P2j)):
+        np.testing.assert_allclose(ttri.projection_matrix(t(K), t(T)).numpy(),
+                                   Pj, rtol=1e-5, atol=1e-5)
+    args = (P1j, P2j, uv1, uv2)
+    X_t = ttri.triangulate_dlt(*map(t, args)).numpy()
+    X_j = np.asarray(jtri.triangulate_dlt(*map(jnp.asarray, args)))
+    rel = lambda a, b: (np.abs(a - b) / np.maximum(np.abs(b), 1.0)).max()
+    if baseline >= 1.0:
+        assert rel(X_t, X_j) < 1e-5
+    else:
+        X64 = ttri.triangulate_dlt(*[t(a).double() for a in args]).numpy()
+        assert rel(X_t, X64) <= 1.25 * rel(X_j, X64) < 1e-4
+    rng = np.random.default_rng(4)
+    N = (rng.normal(0, 1, (64, 3, 3)) + 3 * np.eye(3)).astype(np.float32)
+    g = rng.normal(0, 1, (64, 3)).astype(np.float32)
+    np.testing.assert_allclose(
+        ttri.solve3x3(t(N), t(g)).numpy(),
+        np.asarray(jtri.solve3x3(jnp.asarray(N), jnp.asarray(g))),
+        rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(ttri.inv3x3(t(N)).numpy(),
+                               np.asarray(jtri.inv3x3(jnp.asarray(N))),
+                               rtol=1e-5, atol=1e-5)
+    c1, c2 = np.zeros(3, np.float32), np.array([0.3, 0.0, 0.1], np.float32)
+    np.testing.assert_allclose(
+        ttri.parallax_cos(t(c1), t(c2), t(X_j)).numpy(),
+        np.asarray(jtri.parallax_cos(jnp.asarray(c1), jnp.asarray(c2),
+                                     jnp.asarray(X_j))),
+        rtol=1e-5, atol=1e-6)
