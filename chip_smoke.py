@@ -8,10 +8,10 @@
    (N=200, P=700) and at the tracking step's (N=1024, P=12288), gated and
    gates-off, and at `match_frames`' shape (the 1024 x 1024 features of
    frames 0 and 2 of the system sequence, 100 px window); it times the
-   device work of the kernel launch on packed descriptors, of the wrapper
-   with its packing, and of the plain version (CUDA events around batches of
-   10 calls queued behind a spin kernel, median of 20 batches, after a
-   warm-up batch);
+   device work of the wrapper (one kernel launch), of the plain version and
+   of `torch._int_mm` on the same rows (the product stage alone), with CUDA
+   events around batches of 10 calls queued behind a spin kernel, median of
+   20 batches, after a warm-up batch, and prints each beside its bound;
 3. the tracking slice: the per-frame tracking step over a rendered 48-frame
    640x480 sequence at the default configuration (1024 features, 8 levels, a
    12288-point map): a depth bootstrap on frame 0, then extraction ->
@@ -26,7 +26,11 @@
    it, >= 3 keyframes, > 150 map points, an ATE after Sim3 alignment below
    5% of the span, and exactly 3 K1 launches per tracked frame plus one
    per initialization match; it prints per-stage host times (each stage
-   synchronized), frames, counts and peak device memory.
+   synchronized), frames, counts and peak device memory. It records K1's
+   arguments on the initialization frame (`match_frames`) and on the first
+   frame tracked after the chain's first keyframe (the wide-window, the
+   gates-off ratio and the local-map search), and checks and times K1 on
+   those four real calls as in step 2, with the share of pairs that pass.
 
 Any failed check exits non-zero. The last line is the device JSON; the line
 before it lists the kernels with their launch counts (both phases) and
@@ -54,6 +58,8 @@ SYSTEM_FRAMES = 60
 INIT_WITHIN = 10      # frames
 MIN_KEYFRAMES = 3
 MIN_POINTS = 150      # valid map points (tests/test_e2e.py's bar)
+TRACKING_SEARCHES = ("wide-window search", "gates-off ratio search",
+                     "local-map search")   # K1's calls per tracked frame
 
 
 def fail(msg: str):
@@ -154,9 +160,70 @@ def match_frames_case(feats1, feats2) -> dict:
                 d_level=feats2.octave, d_visible=feats2.valid)
 
 
+H100_INT8_OPS = 1979e12   # dense int8 tensor-core peak, H100 SXM data sheet
+H100_BYTES = 3.35e12      # HBM3 bytes/s, H100 SXM data sheet
+
+
+def int_mm_ms(a):
+    """Device ms of `torch._int_mm` on the {0,1} rows viewed as int8, N x 256
+    by 256 x P: the product stage alone, as a yardstick; None where the
+    call refuses the shape."""
+    q, d = a["q_bits"].view(torch.int8), a["d_bits"].view(torch.int8).t()
+    try:
+        torch._int_mm(q, d)
+    except RuntimeError as e:
+        print(f"  torch._int_mm refuses {tuple(q.shape)} x {tuple(d.shape)}: "
+              f"{str(e).splitlines()[0]}")
+        return None
+    return cuda_ms(lambda: torch._int_mm(q, d))
+
+
+def check_case(gm, label, a, gated):
+    """K1 against its plain version on inputs `a` (exact equality in idx,
+    best and second), then device ms per call of the wrapper, of the plain
+    version and of `torch._int_mm`, beside the bound: the larger of the
+    bytes the function must move over the memory rate and 2 x 256 integer
+    operations per pair that passes the gates over the int8 peak."""
+    got = gm.gated_hamming_best2(**a, gated=gated)
+    want = gm.gated_hamming_best2_reference(**a, gated=gated)
+    torch.cuda.synchronize()
+    err = 0
+    for name, x, y in zip(("idx", "best", "second"), got, want):
+        e = int((x.long() - y.long()).abs().max()) if x.numel() else 0
+        err = max(err, e)
+        if e or x.dtype != y.dtype:
+            fail(f"K1 {label}: {name} differs from the plain version "
+                 f"(max |diff| {e}, dtypes {x.dtype} / {y.dtype})")
+    n, p = a["q_bits"].shape[0], a["d_bits"].shape[0]
+    n_pass = int(gm.gate_mask(*(a[k] for k in (
+        "q_uv", "q_oct", "q_valid", "d_uv", "d_radius", "d_level",
+        "d_visible")), gated=gated).sum())
+    n_bytes = sum(t.numel() * t.element_size() for t in a.values()) \
+        + sum(t.numel() * t.element_size() for t in got)
+    bytes_ms = 1e3 * n_bytes / H100_BYTES
+    ops_ms = 1e3 * 2 * 256 * n_pass / H100_INT8_OPS
+    dense_ms = 1e3 * 2 * 256 * n * p / H100_INT8_OPS
+    out = dict(err=err, share=n_pass / max(n * p, 1),
+               ms=cuda_ms(lambda: gm.gated_hamming_best2(**a, gated=gated)),
+               plain_ms=cuda_ms(lambda: gm.gated_hamming_best2_reference(
+                   **a, gated=gated)),
+               library_ms=int_mm_ms(a), bound_ms=max(bytes_ms, ops_ms),
+               bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+    lib = "n/a" if out["library_ms"] is None else f"{out['library_ms']:.4f}"
+    print(f"K1 {label}: bit-equal to the plain version; {n_pass} of {n * p} "
+          f"pairs pass ({100 * out['share']:.3f}%); ms per call: wrapper "
+          f"{out['ms']:.4f}, plain {out['plain_ms']:.4f}, torch._int_mm "
+          f"{lib}; bound {out['bound_ms']:.5f} ms by {out['bound_by']} "
+          f"(bytes {n_bytes} / 3.35 TB/s = {bytes_ms:.5f} ms, 2 x 256 x "
+          f"{n_pass} passing pairs / 1979 TOP/s = {ops_ms:.5f} ms; dense "
+          f"product {dense_ms:.5f} ms), wrapper at "
+          f"{100 * out['bound_ms'] / out['ms']:.1f}% of the bound")
+    return out
+
+
 def check_kernel(gm, device, match_case):
-    """K1 against its plain version: exact equality, and timings, on random
-    inputs at two sizes (gated and gates-off) and on `match_case`."""
+    """`check_case` on random inputs at two sizes (gated and gates-off) and
+    on `match_case`."""
     rng = np.random.default_rng(0)
     cases = []
     for n, p in ((200, 700), (1024, 12288)):
@@ -166,29 +233,26 @@ def check_kernel(gm, device, match_case):
                   for gated in (True, False)]
     cases.append(("match_frames", "match_frames N=1024 P=1024 r=100 "
                   "gated=True", match_case, True))
-    max_err, timing = 0, {}
-    for key, label, a, gated in cases:
-        got = gm.gated_hamming_best2(**a, gated=gated)
-        want = gm.gated_hamming_best2_reference(**a, gated=gated)
-        torch.cuda.synchronize()
-        for name, x, y in zip(("idx", "best", "second"), got, want):
-            err = int((x.long() - y.long()).abs().max())
-            max_err = max(max_err, err)
-            if err:
-                fail(f"K1 {label}: {name} differs from the plain version "
-                     f"(max |diff| {err})")
-        packed = dict(a, q_bits=gm.pack_bits(a["q_bits"]),
-                      d_bits=gm.pack_bits(a["d_bits"]))
-        k_ms = cuda_ms(lambda: gm.launch_packed(*packed.values(),
-                                                gated=gated))
-        w_ms = cuda_ms(lambda: gm.gated_hamming_best2(**a, gated=gated))
-        p_ms = cuda_ms(lambda: gm.gated_hamming_best2_reference(
-            **a, gated=gated))
-        timing[key] = (k_ms, p_ms)
-        print(f"K1 {label}: bit-equal to the plain version; ms per call: "
-              f"kernel {k_ms:.4f}, wrapper with packing {w_ms:.4f}, plain "
-              f"{p_ms:.4f}")
-    return max_err, timing
+    return {key: check_case(gm, label, a, gated)
+            for key, label, a, gated in cases}
+
+
+class K1Recorder:
+    """Stands in for the `gated_match` module inside `models/tracking` and
+    keeps a copy of the arguments of K1's calls while `on` is set; every
+    call still goes through `gated_match.gated_hamming_best2`."""
+
+    def __init__(self, gm):
+        import inspect
+        self.gm, self.on, self.calls = gm, False, []
+        self.names = list(inspect.signature(
+            gm.gated_hamming_best2).parameters)[:9]
+
+    def gated_hamming_best2(self, *args, gated=True):
+        if self.on:
+            self.calls.append((dict(zip(self.names,
+                                        (t.clone() for t in args))), gated))
+        return self.gm.gated_hamming_best2(*args, gated=gated)
 
 
 def render_sequence(n_frames=N_FRAMES):
@@ -310,8 +374,10 @@ def run_system(frames):
     keyframe chain and the local BAs inside it and after initialization) is
     wrapped to run between two device synchronizations and timed on the
     host clock; K1's launch count is set to 0 just before the run and read
-    just after."""
-    from plslam_tpu_torch.models import mapping
+    just after. K1's arguments are recorded on the initialization frame
+    (its `match_frames` call) and on the first frame tracked after the
+    first keyframe of the chain (its three searches)."""
+    from plslam_tpu_torch.models import mapping, tracking
     from plslam_tpu_torch.models.system import System
     from plslam_tpu_torch.ops import gated_match
 
@@ -337,23 +403,37 @@ def run_system(frames):
         setattr(slam, attr, timed(getattr(slam, attr), name))
     chain_ba = mapping.run_local_ba
     mapping.run_local_ba = timed(chain_ba, "local_ba")   # inside the chain
+    recorder = K1Recorder(gated_match)
+    tracking.gated_match = recorder
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
-    init, states = None, []
+    init, states, real_calls = None, [], []
     gated_match.gated_hamming_best2.launches = 0
     try:
         for i, img in enumerate(frames):
+            capture = not real_calls and slam.n_kf_host > 2
+            recorder.on, recorder.calls = init is None or capture, []
             slam.track_monocular(img, i / 30.0)
             states.append(slam.state)
             if init is None and slam.state == "OK":
                 init = i
+                init_call = recorder.calls[-1]
+            elif capture:
+                real_calls = [(f"{label}, frame {i}", *call) for label, call
+                              in zip(TRACKING_SEARCHES, recorder.calls)]
+                if len(recorder.calls) != len(TRACKING_SEARCHES):
+                    fail(f"frame {i} made {len(recorder.calls)} K1 calls, "
+                         f"expected {len(TRACKING_SEARCHES)}")
     finally:
         mapping.run_local_ba = chain_ba
+        tracking.gated_match = gated_match
     launches = gated_match.gated_hamming_best2.launches
+    if init is not None:
+        real_calls.append((f"match_frames, init frame {init}", *init_call))
     traj = dict(slam.trajectory)
     idx = [i for i in range(len(frames)) if i / 30.0 in traj]
     return dict(slam=slam, init=init, states=states, times=times,
-                launches=launches, idx=idx,
+                launches=launches, idx=idx, real_calls=real_calls,
                 poses=np.stack([traj[i / 30.0] for i in idx]),
                 peak=torch.cuda.max_memory_allocated(device))
 
@@ -442,7 +522,7 @@ def main() -> int:
                                        WIDTH).to(device)
     f0, f2 = (extractor(torch.from_numpy(frames_sys[i].astype(np.uint8))
                         .to(device).to(torch.float32)) for i in (0, 2))
-    max_err, timing = check_kernel(gm, device, match_frames_case(f0, f2))
+    timing = check_kernel(gm, device, match_frames_case(f0, f2))
 
     t0 = time.perf_counter()
     Ts, frames, depths = render_sequence()
@@ -481,16 +561,25 @@ def main() -> int:
     sys_out = run_system(frames_sys)
     print(f"system: {SYSTEM_FRAMES} frames in {time.perf_counter() - t0:.1f} s")
     check_system(Ts_sys, sys_out)
+    if len(sys_out["real_calls"]) != len(TRACKING_SEARCHES) + 1:
+        fail(f"recorded {len(sys_out['real_calls'])} of K1's real calls, "
+             f"expected {len(TRACKING_SEARCHES) + 1}")
+    for label, a, gated in sys_out["real_calls"]:
+        n, p = a["q_bits"].shape[0], a["d_bits"].shape[0]
+        timing[label] = check_case(gm, f"real call, {label}: N={n} P={p} "
+                                   f"gated={gated}", a, gated)
 
-    k_ms, p_ms = timing[(1024, 12288, True)]
+    head = timing[(1024, 12288, True)]
     print(f"card: {card_line()}")
     print(json.dumps({"kernels": [{
         "name": "gated_hamming_best2", "route": "cuda",
         "source": "plslam_tpu_torch/csrc/gated_hamming.cu",
         "replaces": "plslam_tpu/ops/pallas_match.py:115",
         "launches": out["launches"] + sys_out["launches"],
-        "max_abs_err": max_err,
-        "ms": k_ms, "plain_ms": p_ms}]}))
+        "max_abs_err": max(c["err"] for c in timing.values()),
+        "ms": head["ms"], "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "library_ms": head["library_ms"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,9 +1,11 @@
 """Fused projection-gated Hamming top-2 search (kernel K1).
 
 Port of `plslam_tpu/ops/pallas_match.py`. `gated_hamming_best2` runs the
-hand-written CUDA kernel `csrc/gated_hamming.cu` on CUDA tensors and the plain
-PyTorch version, `gated_hamming_best2_reference`, on CPU tensors. There is no
-fallback: on a CUDA tensor a failed build or launch raises.
+hand-written CUDA kernel `csrc/gated_hamming.cu` on CUDA tensors, one launch
+per search on the inputs as they are (its tensor-memory copies want the map
+side 16-byte aligned, as fresh tensors are), and the plain PyTorch version,
+`gated_hamming_best2_reference`, on CPU tensors. There is no fallback: on a
+CUDA tensor a failed build or launch raises.
 
 The kernel is compiled with nvcc at first use into `build/plslam_tpu_torch/`
 under the repository root, named by the hash of its source, so an edited
@@ -28,8 +30,8 @@ CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "plslam_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
-CHUNK = 256   # map points per chunk of the second grid dimension
 
+MAX_POINTS = 1 << 21   # the kernel's (distance, index) keys hold 22-bit indices
 _lib = None
 
 
@@ -74,40 +76,29 @@ def _load():
         lib = ctypes.CDLL(str(build()))
         fn = lib.plslam_gated_hamming_best2
         fn.argtypes = ([ctypes.c_int, ctypes.c_void_p] + [ctypes.c_void_p] * 9
-                       + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 6)
+                       + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3)
         fn.restype = ctypes.c_int
         _lib = lib
     return _lib
 
 
-def pack_bits(bits):
-    """(R, 256) {0,1} uint8 -> (R, 8) int32 words holding the bits as 8 x
-    uint32 (bit j of word w = bit 32 w + j)."""
-    weights = torch.ones(32, dtype=torch.int64, device=bits.device) \
-        << torch.arange(32, device=bits.device)
-    words = (bits.view(-1, 8, 32).to(torch.int64) * weights).sum(-1)
-    return words.to(torch.int32)
-
-
-_SPEC = (  # name, dtype, trailing shape, query (N) or map (P) side
-    ("q_bits", torch.uint8, (256,), "N"), ("q_uv", torch.float32, (2,), "N"),
-    ("q_oct", torch.int32, (), "N"), ("q_valid", torch.bool, (), "N"),
-    ("d_bits", torch.uint8, (256,), "P"), ("d_uv", torch.float32, (2,), "P"),
-    ("d_radius", torch.float32, (), "P"), ("d_level", torch.int32, (), "P"),
-    ("d_visible", torch.bool, (), "P"),
+_SPEC = (  # name, dtype, trailing shape, query (N) or map (P) side,
+           # byte alignment the kernel reads it with
+    ("q_bits", torch.uint8, (256,), "N", 16),
+    ("q_uv", torch.float32, (2,), "N", 8),
+    ("q_oct", torch.int32, (), "N", 4), ("q_valid", torch.bool, (), "N", 1),
+    ("d_bits", torch.uint8, (256,), "P", 16),
+    ("d_uv", torch.float32, (2,), "P", 16),
+    ("d_radius", torch.float32, (), "P", 16),
+    ("d_level", torch.int32, (), "P", 16),
+    ("d_visible", torch.bool, (), "P", 16),
 )
 
 
-_PACKED = {"q_bits": ("q_desc", torch.int32, (8,)),
-           "d_bits": ("d_desc", torch.int32, (8,))}
-
-
-def _check(args, packed=False):
+def _check(args):
     n, p = args[0].shape[0], args[4].shape[0]
     device = args[0].device
-    for t, (name, dtype, tail, side) in zip(args, _SPEC):
-        if packed and name in _PACKED:
-            name, dtype, tail = _PACKED[name]
+    for t, (name, dtype, tail, side, _) in zip(args, _SPEC):
         shape = ((n if side == "N" else p),) + tail
         if t.device != device:
             raise ValueError(f"{name} is on {t.device}, q_bits on {device}")
@@ -120,18 +111,27 @@ def _check(args, packed=False):
     return n, p, device
 
 
-def gated_hamming_best2_reference(q_bits, q_uv, q_oct, q_valid, d_bits, d_uv,
-                                  d_radius, d_level, d_visible, gated=True):
-    """Plain PyTorch version: `distance_matrix` + the gate mask +
-    `masked_best2`, materializing the (N, P) matrices."""
-    D = hamming.distance_matrix(q_bits, d_bits)
+def gate_mask(q_uv, q_oct, q_valid, d_uv, d_radius, d_level, d_visible,
+              gated=True):
+    """(N, P) bool: the pairs the search may match (see
+    `gated_hamming_best2`)."""
     mask = d_visible[None, :] & q_valid[:, None]
     if gated:
         du = (q_uv[:, 0:1] - d_uv[None, :, 0]).abs()
         dv = (q_uv[:, 1:2] - d_uv[None, :, 1]).abs()
         mask = mask & (du < d_radius[None, :]) & (dv < d_radius[None, :]) \
             & ((q_oct[:, None] - d_level[None, :]).abs() <= 1)
-    return hamming.masked_best2(D, mask)
+    return mask
+
+
+def gated_hamming_best2_reference(q_bits, q_uv, q_oct, q_valid, d_bits, d_uv,
+                                  d_radius, d_level, d_visible, gated=True):
+    """Plain PyTorch version: `distance_matrix` + `gate_mask` +
+    `masked_best2`, materializing the (N, P) matrices."""
+    return hamming.masked_best2(
+        hamming.distance_matrix(q_bits, d_bits),
+        gate_mask(q_uv, q_oct, q_valid, d_uv, d_radius, d_level, d_visible,
+                  gated))
 
 
 def gated_hamming_best2(q_bits, q_uv, q_oct, q_valid, d_bits, d_uv, d_radius,
@@ -146,48 +146,34 @@ def gated_hamming_best2(q_bits, q_uv, q_oct, q_valid, d_bits, d_uv, d_radius,
     `hamming.masked_best2` under the gates: int64 index, int32 distances,
     INVALID where nothing passes (index 0), ties to the lowest index.
 
-    CUDA tensors launch the kernel (see `launch_packed`); CPU tensors take
-    the plain version."""
+    CUDA tensors launch the kernel, one launch per call, counted in
+    `gated_hamming_best2.launches`; CPU tensors take the plain version."""
     args = (q_bits, q_uv, q_oct, q_valid, d_bits, d_uv, d_radius, d_level,
             d_visible)
-    _, _, device = _check(args)
+    n, p, device = _check(args)
     if device.type == "cpu":
         return gated_hamming_best2_reference(*args, gated=gated)
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
-    return launch_packed(pack_bits(q_bits), q_uv, q_oct, q_valid,
-                         pack_bits(d_bits), d_uv, d_radius, d_level, d_visible,
-                         gated)
-
-
-def launch_packed(q_desc, q_uv, q_oct, q_valid, d_desc, d_uv, d_radius,
-                  d_level, d_visible, gated=True):
-    """Launch the kernel on CUDA tensors, with the descriptors packed by
-    `pack_bits`, and count the launch in `gated_hamming_best2.launches`.
-    Returns (best_idx, best, second)."""
-    n, p, device = _check((q_desc, q_uv, q_oct, q_valid, d_desc, d_uv,
-                           d_radius, d_level, d_visible), packed=True)
-    if device.type != "cuda":
-        raise ValueError(f"the kernel needs CUDA tensors, got {device}")
+    if p >= MAX_POINTS:
+        raise ValueError(f"the kernel takes fewer than {MAX_POINTS} map "
+                         f"points, got {p}")
+    for t, (name, _, _, _, align) in zip(args, _SPEC):
+        if t.data_ptr() % align:
+            raise ValueError(f"{name} is not {align}-byte aligned")
     fn = _load().plslam_gated_hamming_best2
-    n_chunks = -(-p // CHUNK)
-    part = torch.empty((3, max(n_chunks, 1), n), dtype=torch.int32,
-                       device=device)
-    out = torch.empty((3, n), dtype=torch.int32, device=device)
+    best2 = torch.empty((2, n), dtype=torch.int32, device=device)
+    idx = torch.empty(n, dtype=torch.int64, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
-    ptr = lambda t: t.data_ptr()
-    err = fn(device.index, stream,
-             ptr(q_desc), ptr(q_uv), ptr(q_oct), ptr(q_valid), ptr(d_desc),
-             ptr(d_uv), ptr(d_radius), ptr(d_level), ptr(d_visible),
-             n, p, int(bool(gated)), CHUNK,
-             ptr(part[0]), ptr(part[1]), ptr(part[2]),
-             ptr(out[0]), ptr(out[1]), ptr(out[2]))
+    err = fn(device.index, stream, *(t.data_ptr() for t in args), n, p,
+             int(bool(gated)), best2[0].data_ptr(), best2[1].data_ptr(),
+             idx.data_ptr())
     if err != 0:
         raise RuntimeError(f"gated_hamming_best2 launch failed: CUDA error "
                            f"{err}")
     if n > 0:  # the entry point launches nothing for an empty query set
         gated_hamming_best2.launches += 1
-    return out[2].long(), out[0], out[1]
+    return idx, best2[0], best2[1]
 
 
 gated_hamming_best2.launches = 0

@@ -129,18 +129,24 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         gated_match.gated_hamming_best2(**{**a, "q_uv": a["q_uv"].T.contiguous().T})
     with pytest.raises(ValueError):
         gated_match.gated_hamming_best2(**{**a, "d_uv": a["d_uv"].to("meta")})
-    packed = {**a, "q_bits": gated_match.pack_bits(a["q_bits"]),
-              "d_bits": gated_match.pack_bits(a["d_bits"])}
-    with pytest.raises(ValueError, match="CUDA"):    # the kernel only
-        gated_match.launch_packed(*packed.values())
-    with pytest.raises(TypeError):
-        gated_match.launch_packed(*{**packed, "d_bits": a["d_bits"]}.values())
 
 
-def test_pack_bits_roundtrip():
-    bits = torch.from_numpy(_inputs()["q_bits"])
-    words = gated_match.pack_bits(bits)
-    assert words.dtype == torch.int32 and words.shape == (N, 8)
-    shifts = torch.arange(32)
-    back = ((words.long()[..., None] >> shifts) & 1).reshape(N, 256)
-    np.testing.assert_array_equal(back.numpy(), bits.numpy())
+@pytest.mark.parametrize("rows", ["random", "zeros", "ones"])
+def test_row_sums_and_products_give_hamming(rows):
+    """The kernel's arithmetic on {0,1} rows, in int32, against JAX's
+    distance_matrix: hamming(a, b) = sum(a) + sum(b) - 2 a.b, and the form
+    the kernel computes, sum(a) - (2a - 1).b, one s8 x u8 product per pair
+    with no row sum of b."""
+    a = _inputs()
+    q, d = a["q_bits"], a["d_bits"]
+    if rows != "random":
+        q = np.full_like(q, rows == "ones")
+        d = np.full_like(d, rows == "ones")
+    qt = torch.from_numpy(q).to(torch.int32)
+    dt = torch.from_numpy(d).to(torch.int32)
+    sum_q = qt.sum(1, dtype=torch.int32)[:, None]
+    sum_d = dt.sum(1, dtype=torch.int32)[None, :]
+    want = np.asarray(jham.distance_matrix(jnp.asarray(q), jnp.asarray(d)))
+    for got in (sum_q + sum_d - 2 * (qt @ dt.T), sum_q - (2 * qt - 1) @ dt.T):
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), want)

@@ -15,7 +15,7 @@ def _port_modules():
         rel = path.relative_to(ROOT).with_suffix("")
         parts = rel.parts[:-1] if rel.name == "__init__" else rel.parts
         mods.append(".".join(parts))
-    return mods + ["chip_smoke", "profile_torch_step"]
+    return mods + ["chip_smoke", "profile_torch_step", "compare_torch_slice"]
 
 
 def test_port_imports_no_jax():
