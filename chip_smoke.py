@@ -30,10 +30,22 @@
    arguments on the initialization frame (`match_frames`) and on the first
    frame tracked after the chain's first keyframe (the wide-window, the
    gates-off ratio and the local-map search), and checks and times K1 on
-   those four real calls as in step 2, with the share of pairs that pass.
+   those four real calls as in step 2, with the share of pairs that pass;
+5. the lines phase, on the line-rich sequence of tests/test_lines_help.py
+   (40 frames, `make_scene(seed=9, n_lines=24)`, plane textures flattened):
+   (a) `System.track_monocular` at the `SLAMConfig` defaults with lines on,
+   the lines-help keyframe cadence (every 3 frames, `kf_ref_ratio` 2,
+   `min_init_matches` 60, `tri_covis` off), loop closing and growth off,
+   with step 4's checks plus >= 1 valid map line at the end, and per-stage
+   host times including line detection and `create_new_lines` in the
+   chain; (b) tests/test_lines_help.py's own small widths with lines on and
+   off: no LOST frame after initialization, a valid map line and a tracked
+   frame with a line inlier (lines on), both ATEs printed beside the CPU
+   runs of `scripts/lines_yardstick.py`; (c) `detect_lines` on the card
+   against the port on the CPU for three frames (`check_detect_on_card`).
 
 Any failed check exits non-zero. The last line is the device JSON; the line
-before it lists the kernels with their launch counts (both phases) and
+before it lists the kernels with their launch counts (every phase) and
 timings. There is no CPU path: without a CUDA device the script exits
 non-zero.
 """
@@ -60,6 +72,22 @@ MIN_KEYFRAMES = 3
 MIN_POINTS = 150      # valid map points (tests/test_e2e.py's bar)
 TRACKING_SEARCHES = ("wide-window search", "gates-off ratio search",
                      "local-map search")   # K1's calls per tracked frame
+LINES_FRAMES = 40
+# tests/test_lines_help.py's keyframe cadence and small widths
+LINES_HELP = dict(kf_min_interval=3, kf_max_interval=3, kf_ref_ratio=2.0,
+                  min_init_matches=60, tri_covis=False)
+LINES_SMALL = dict(n_features=256, n_levels=3, max_kf=24, max_pt=4096,
+                   max_ln=256, n_lf=96, ba_window=5, ba_points=1024,
+                   ba_lines=128, track_line_info=1.0)
+# scripts/lines_yardstick.py on the CPU, the small widths (init frame, ATE)
+SMALL_CPU = {"jax": "lines on: init 28, ATE 0.0270; off: init 28, "
+                    "ATE 0.0334",
+             "port": "lines on: init 19, ATE 0.0336; off: init 19, "
+                     "ATE 0.0300"}
+DETECT_FRAMES = (0, 13, 27)
+DETECT_TOL_PX = 0.05      # card vs CPU endpoint gap (check_detect_on_card)
+DETECT_TIE_PX = 0.05      # segments this close to the length floor may flip
+DETECT_BITS = 0.995       # share of equal descriptor bits
 
 
 def fail(msg: str):
@@ -368,23 +396,26 @@ def system_config():
                       use_loop_closing=False, grow_map=False)
 
 
-def run_system(frames):
-    """`System.track_monocular` over the frames on cuda:0. Each stage
-    (extraction, initialization match and two-view solve, tracking, the
-    keyframe chain and the local BAs inside it and after initialization) is
-    wrapped to run between two device synchronizations and timed on the
-    host clock; K1's launch count is set to 0 just before the run and read
-    just after. K1's arguments are recorded on the initialization frame
-    (its `match_frames` call) and on the first frame tracked after the
-    first keyframe of the chain (its three searches)."""
+def run_system(frames, cfg=None, record_calls=True):
+    """`System.track_monocular` over the frames on cuda:0 at `cfg` (default
+    `system_config()`). Each stage (extraction, line detection inside it,
+    initialization match and two-view solve, tracking, the keyframe chain
+    and the line triangulations and local BAs inside it, and the local BA
+    after initialization) is wrapped to run between two device
+    synchronizations and timed on the host clock; K1's launch count is set
+    to 0 just before the run and read just after. With `record_calls`, K1's
+    arguments are recorded on the initialization frame (its `match_frames`
+    call) and on the first frame tracked after the first keyframe of the
+    chain (its three searches)."""
     from plslam_tpu_torch.models import mapping, tracking
     from plslam_tpu_torch.models.system import System
     from plslam_tpu_torch.ops import gated_match
 
     device = torch.device("cuda", 0)
-    slam = System(system_config(), device=device)
-    times = {k: [] for k in ("extract", "match", "two_view", "init_ba",
-                             "track", "keyframe", "local_ba")}
+    slam = System(cfg if cfg is not None else system_config(), device=device)
+    times = {k: [] for k in ("extract", "lines", "match", "two_view",
+                             "init_ba", "track", "keyframe", "create_lines",
+                             "local_ba")}
 
     def timed(fn, name):
         def wrapper(*args, **kwargs):
@@ -396,13 +427,16 @@ def run_system(frames):
             return out
         return wrapper
 
-    for attr, name in (("_extract", "extract"), ("_match_frames", "match"),
+    for attr, name in (("_extract", "extract"), ("_detect_lines", "lines"),
+                       ("_match_frames", "match"),
                        ("_init_two_view", "two_view"),
                        ("_track_update", "track"),
                        ("_process_kf", "keyframe"), ("_local_ba", "init_ba")):
         setattr(slam, attr, timed(getattr(slam, attr), name))
-    chain_ba = mapping.run_local_ba
-    mapping.run_local_ba = timed(chain_ba, "local_ba")   # inside the chain
+    # inside the chain (the initial map's lines go through slam._create_lines)
+    chain_ba, chain_lines = mapping.run_local_ba, mapping.create_new_lines
+    mapping.run_local_ba = timed(chain_ba, "local_ba")
+    mapping.create_new_lines = timed(chain_lines, "create_lines")
     recorder = K1Recorder(gated_match)
     tracking.gated_match = recorder
     torch.cuda.synchronize()
@@ -411,13 +445,14 @@ def run_system(frames):
     gated_match.gated_hamming_best2.launches = 0
     try:
         for i, img in enumerate(frames):
-            capture = not real_calls and slam.n_kf_host > 2
-            recorder.on, recorder.calls = init is None or capture, []
+            capture = record_calls and not real_calls and slam.n_kf_host > 2
+            recorder.on = record_calls and (init is None or capture)
+            recorder.calls = []
             slam.track_monocular(img, i / 30.0)
             states.append(slam.state)
             if init is None and slam.state == "OK":
                 init = i
-                init_call = recorder.calls[-1]
+                init_call = recorder.calls[-1] if record_calls else None
             elif capture:
                 real_calls = [(f"{label}, frame {i}", *call) for label, call
                               in zip(TRACKING_SEARCHES, recorder.calls)]
@@ -425,10 +460,10 @@ def run_system(frames):
                     fail(f"frame {i} made {len(recorder.calls)} K1 calls, "
                          f"expected {len(TRACKING_SEARCHES)}")
     finally:
-        mapping.run_local_ba = chain_ba
+        mapping.run_local_ba, mapping.create_new_lines = chain_ba, chain_lines
         tracking.gated_match = gated_match
     launches = gated_match.gated_hamming_best2.launches
-    if init is not None:
+    if init is not None and record_calls:
         real_calls.append((f"match_frames, init frame {init}", *init_call))
     traj = dict(slam.trajectory)
     idx = [i for i in range(len(frames)) if i / 30.0 in traj]
@@ -438,20 +473,24 @@ def run_system(frames):
                 peak=torch.cuda.max_memory_allocated(device))
 
 
-def check_system(Ts, out):
-    """The system phase's six checks; returns the ATE and span."""
+def check_system(Ts, out, label="system", min_lines=0):
+    """The system phase's six checks (and, with `min_lines`, at least that
+    many valid map lines at the end); returns the ATE and span."""
     from plslam_tpu_torch.datasets import synthetic
     slam, init, times = out["slam"], out["init"], out["times"]
     pct_ms = lambda x, q: 1e3 * float(np.percentile(x, q)) if x else 0.0
-    for name in ("extract", "track", "keyframe", "local_ba"):
+    for name in ("extract", "lines", "track", "keyframe", "create_lines",
+                 "local_ba"):
         x = times[name]
-        print(f"system: {name} ms median {pct_ms(x, 50):.2f} p90 "
-              f"{pct_ms(x, 90):.2f} over {len(x)} calls")
+        if x:
+            print(f"{label}: {name} ms median {pct_ms(x, 50):.2f} p90 "
+                  f"{pct_ms(x, 90):.2f} over {len(x)} calls")
     if init is not None and times["init_ba"]:
         tv = times["two_view"]
-        print(f"system: init on frame {init}: {1e3 * slam.timings[init]:.2f} "
-              f"ms, of which match {1e3 * times['match'][-1]:.2f} ms, "
-              f"two-view {1e3 * tv[-1]:.2f} ms, initial local BA "
+        print(f"{label}: init on frame {init}: "
+              f"{1e3 * slam.timings[init]:.2f} ms, of which match "
+              f"{1e3 * times['match'][-1]:.2f} ms, two-view "
+              f"{1e3 * tv[-1]:.2f} ms, initial local BA "
               f"{1e3 * times['init_ba'][0]:.2f} ms; {len(times['match'])} "
               f"match and {len(tv)} two-view attempts in all, the first "
               f"two-view {1e3 * tv[0]:.2f} ms")
@@ -463,28 +502,150 @@ def check_system(Ts, out):
     ate = synthetic.ate_rmse(out["poses"], Ts[idx])
     c = centers(Ts[idx])
     span = float(np.linalg.norm(c[-1] - c[0]))
-    print(f"system: {n_track} frames tracked, {len(idx)} poses, "
+    n_lines = int(slam.ms.ln_valid.sum())
+    ln_inl = [s.get("line_inliers", 0) for s in slam.stats
+              if not s.get("lost")]
+    print(f"{label}: {n_track} frames tracked, {len(idx)} poses, "
           f"{slam.n_keyframes()} keyframes, {slam.n_map_points()} map points, "
-          f"ATE {ate:.4f} m over a {span:.3f} m span "
-          f"({100 * ate / span:.2f}%), K1 launches {out['launches']} "
-          f"(expected {expected}), peak device memory "
-          f"{out['peak'] / 2**20:.1f} MiB")
+          f"{int(slam.ms.n_ln)} map lines created, {n_lines} valid, line "
+          f"inliers per tracked frame max {max(ln_inl, default=0)} (on "
+          f"{sum(1 for n in ln_inl if n > 0)} frames), ATE {ate:.4f} m over a "
+          f"{span:.3f} m span ({100 * ate / max(span, 1e-9):.2f}%), K1 "
+          f"launches {out['launches']} (expected {expected}), peak device "
+          f"memory {out['peak'] / 2**20:.1f} MiB")
     if init is None or init >= INIT_WITHIN:
-        fail(f"not initialized within the first {INIT_WITHIN} frames "
-             f"(init frame {init})")
+        fail(f"{label}: not initialized within the first {INIT_WITHIN} "
+             f"frames (init frame {init})")
     if lost:
-        fail(f"LOST after initialization on frames {lost}")
+        fail(f"{label}: LOST after initialization on frames {lost}")
     if slam.n_keyframes() < MIN_KEYFRAMES:
-        fail(f"{slam.n_keyframes()} keyframes (< {MIN_KEYFRAMES})")
+        fail(f"{label}: {slam.n_keyframes()} keyframes (< {MIN_KEYFRAMES})")
     if slam.n_map_points() <= MIN_POINTS:
-        fail(f"{slam.n_map_points()} map points (<= {MIN_POINTS})")
+        fail(f"{label}: {slam.n_map_points()} map points (<= {MIN_POINTS})")
+    if n_lines < min_lines:
+        fail(f"{label}: {n_lines} valid map lines at the end (< {min_lines})")
     if not ate < ATE_FRACTION * max(span, 0.2):
-        fail(f"ATE {ate:.4f} m is not below {ATE_FRACTION:.0%} of the "
-             f"{span:.3f} m span")
+        fail(f"{label}: ATE {ate:.4f} m is not below {ATE_FRACTION:.0%} of "
+             f"the {span:.3f} m span")
     if out["launches"] != expected:
-        fail(f"K1 launched {out['launches']} times in the system phase, "
-             f"expected 3 x {n_track} tracked frames + "
-             f"{len(times['match'])} init matches = {expected}")
+        fail(f"{label}: K1 launched {out['launches']} times, expected 3 x "
+             f"{n_track} tracked frames + {len(times['match'])} init matches "
+             f"= {expected}")
+    return ate, span
+
+
+def render_lines_sequence(n_frames=LINES_FRAMES):
+    """The line-rich sequence of tests/test_lines_help.py: `make_scene(seed=9,
+    n_lines=24)` with the plane textures flattened to 5% contrast (weak
+    corners, high-contrast segments), `trajectory(40, "orbit",
+    amplitude=1.0)`, 640x480, fx = fy = 500."""
+    from plslam_tpu_torch.datasets import synthetic
+    scene = synthetic.make_scene(seed=9, n_lines=24)
+    planes = [synthetic.Plane(p.origin, p.e1, p.e2, p.scale,
+                              (110.0 + (p.tex - float(p.tex.mean())) * 0.05
+                               ).astype(np.float32)) for p in scene.planes]
+    scene = synthetic.Scene(planes, scene.lines, scene.points, scene.K,
+                            scene.width, scene.height)
+    Ts = synthetic.trajectory(n_frames, "orbit", amplitude=1.0)
+    return Ts, [synthetic.render(scene, T) for T in Ts]
+
+
+def lines_config(small: bool = False, use_lines: bool = True):
+    """The lines phase's `SLAMConfig`: the defaults (or, with `small`,
+    tests/test_lines_help.py's widths) with the renderer's camera, the
+    lines-help keyframe cadence, loop closing and map growth off."""
+    from plslam_tpu_torch.models.system import SLAMConfig
+    return SLAMConfig(fx=FX, fy=FX, cx=WIDTH / 2, cy=HEIGHT / 2, k1=0, k2=0,
+                      p1=0, p2=0, k3=0, use_lines=use_lines,
+                      use_loop_closing=False, grow_map=False, **LINES_HELP,
+                      **(LINES_SMALL if small else {}))
+
+
+def check_lines_small(Ts, on, off):
+    """(b): the small-width configuration with lines on: no LOST frame
+    after initialization, a valid map line at the end and a line inlier on
+    at least one tracked frame; prints both runs beside the CPU runs."""
+    from plslam_tpu_torch.datasets import synthetic
+    res = {}
+    for name, out in (("on", on), ("off", off)):
+        slam, idx = out["slam"], out["idx"]
+        res[name] = dict(init=out["init"], poses=len(idx),
+                         kf=slam.n_keyframes(), pts=slam.n_map_points(),
+                         ln=int(slam.ms.n_ln),
+                         ln_valid=int(slam.ms.ln_valid.sum()),
+                         ln_inl=[s.get("line_inliers", 0) for s in slam.stats
+                                 if not s.get("lost")],
+                         launches=out["launches"],
+                         ate=synthetic.ate_rmse(out["poses"], Ts[idx])
+                         if len(idx) >= 3 else float("nan"))
+        r = res[name]
+        print(f"lines (b), lines {name}: init frame {r['init']}, "
+              f"{r['poses']} poses, {r['kf']} keyframes, {r['pts']} points, "
+              f"{r['ln']} lines created, {r['ln_valid']} valid, line inliers "
+              f"per tracked frame {r['ln_inl']}, ATE {r['ate']:.4f}, K1 "
+              f"launches {r['launches']}")
+    print(f"lines (b): ATE on / off {res['on']['ate']:.4f} / "
+          f"{res['off']['ate']:.4f} (ratio "
+          f"{res['on']['ate'] / res['off']['ate']:.3f}); the CPU runs of "
+          f"scripts/lines_yardstick.py: JAX package {SMALL_CPU['jax']}, "
+          f"port {SMALL_CPU['port']}")
+    lost = [i for i, s in enumerate(on["states"])
+            if on["init"] is not None and i > on["init"] and s != "OK"]
+    if on["init"] is None:
+        fail("lines (b): never initialized")
+    if lost:
+        fail(f"lines (b): LOST after initialization on frames {lost}")
+    if res["on"]["ln_valid"] < 1:
+        fail("lines (b): no valid map line at the end")
+    if max(res["on"]["ln_inl"], default=0) < 1:
+        fail("lines (b): no tracked frame had a line inlier")
+
+
+def check_detect_on_card(frames, idx=DETECT_FRAMES):
+    """(c): `detect_lines` on the card against the port on the CPU for three
+    frames. The card's FMA contraction and atan2/cos differ from the CPU's
+    by ulps, which the chain fit's covariance (two ~1e5 moments subtracted)
+    turns into ~1e-2 px at the endpoints (0.004-0.025 px between the JAX
+    program and the port on the CPU, tests/test_torch_lines.py), so: the
+    segments longer than the length floor + DETECT_TIE_PX pair up one to
+    one within DETECT_TOL_PX, and >= DETECT_BITS of their descriptor bits
+    agree. A chain at the floor itself may fall on either side of it on
+    either device."""
+    from plslam_tpu_torch.ops import lines
+    cpu = lines.LineDetector(HEIGHT, WIDTH)
+    card = lines.LineDetector(HEIGHT, WIDTH).to(torch.device("cuda", 0))
+    for i in idx:
+        img = torch.from_numpy(frames[i].astype(np.uint8)).to(torch.float32)
+        img_card = img.cuda()
+        want = cpu(img)
+        got = lines.LineFeatures(*(t.cpu() for t in card(img_card)))
+        ms = cuda_ms(lambda: card(img_card), runs=5, batch=2)
+        keep = lambda f: (f.valid & (f.length > card.min_length
+                                     + DETECT_TIE_PX)).numpy()
+        kt, kc = keep(got), keep(want)
+        seg = lambda f, k: np.concatenate([f.uv_a.numpy(), f.uv_b.numpy()],
+                                          1)[k]
+        st, sc = seg(got, kt), seg(want, kc)
+        if len(st) != len(sc) or not len(st):
+            fail(f"lines (c), frame {i}: {len(st)} card segments above the "
+                 f"floor, {len(sc)} on the CPU (valid {int(got.valid.sum())}"
+                 f" / {int(want.valid.sum())})")
+        d = np.abs(st[:, None] - sc[None]).max(-1)
+        m = d.argmin(1)
+        gap = float(d.min(1).max())
+        if sorted(m) != list(range(len(sc))) or gap > DETECT_TOL_PX:
+            fail(f"lines (c), frame {i}: card segments do not pair with the "
+                 f"CPU's within {DETECT_TOL_PX} px (worst {gap:.4f} px)")
+        bits = float((got.desc.numpy()[kt] != want.desc.numpy()[kc][m]
+                      ).mean())
+        if 1.0 - bits < DETECT_BITS:
+            fail(f"lines (c), frame {i}: {100 * bits:.3f}% of descriptor "
+                 f"bits differ")
+        print(f"lines (c), frame {i}: {int(got.valid.sum())} / "
+              f"{int(want.valid.sum())} valid (card / CPU), {len(st)} above "
+              f"the floor pair up within {gap:.5f} px, {100 * bits:.3f}% "
+              f"descriptor bits differ; detect_lines on the card "
+              f"{ms:.3f} ms (device time)")
 
 
 def main() -> int:
@@ -569,13 +730,39 @@ def main() -> int:
         timing[label] = check_case(gm, f"real call, {label}: N={n} P={p} "
                                    f"gated={gated}", a, gated)
 
+    # the lines phase: (a) the defaults with lines on, (b) the lines-help
+    # widths with lines on and off, (c) detect_lines on the card vs the CPU
+    t0 = time.perf_counter()
+    Ts_ln, frames_ln = render_lines_sequence()
+    print(f"rendered the {LINES_FRAMES}-frame line-rich sequence in "
+          f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    lines_out = run_system(frames_ln, lines_config(), record_calls=False)
+    print(f"lines (a): {LINES_FRAMES} frames in "
+          f"{time.perf_counter() - t0:.1f} s")
+    check_system(Ts_ln, lines_out, "lines (a)", min_lines=1)
+    small = {}
+    for use_lines in (True, False):
+        t0 = time.perf_counter()
+        small[use_lines] = run_system(frames_ln, lines_config(True, use_lines),
+                                      record_calls=False)
+        print(f"lines (b), lines {'on' if use_lines else 'off'}: "
+              f"{LINES_FRAMES} frames in {time.perf_counter() - t0:.1f} s")
+    check_lines_small(Ts_ln, small[True], small[False])
+    check_detect_on_card(frames_ln)
+    line_launches = lines_out["launches"] + sum(o["launches"]
+                                                for o in small.values())
+    print(f"K1 launches: slice {out['launches']}, system "
+          f"{sys_out['launches']}, lines (a) {lines_out['launches']}, lines "
+          f"(b) {small[True]['launches']} / {small[False]['launches']}")
+
     head = timing[(1024, 12288, True)]
     print(f"card: {card_line()}")
     print(json.dumps({"kernels": [{
         "name": "gated_hamming_best2", "route": "cuda",
         "source": "plslam_tpu_torch/csrc/gated_hamming.cu",
         "replaces": "plslam_tpu/ops/pallas_match.py:115",
-        "launches": out["launches"] + sys_out["launches"],
+        "launches": out["launches"] + sys_out["launches"] + line_launches,
         "max_abs_err": max(c["err"] for c in timing.values()),
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],

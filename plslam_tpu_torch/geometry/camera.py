@@ -1,8 +1,8 @@
 """Pinhole camera with radial-tangential distortion on float32 tensors.
 
 Port of `plslam_tpu/geometry/camera.py`: analytic keypoint undistortion by a
-fixed 10-step fixed-point iteration (the `cv::undistortPoints` contract) and
-pinhole projection. The intrinsics are Python floats rounded to float32, so a
+fixed 10-step fixed-point iteration (the `cv::undistortPoints` contract),
+pinhole projection and unprojection. The intrinsics are Python floats rounded to float32, so a
 `Camera` works on any device and matches the JAX package's float32 scalars.
 """
 from __future__ import annotations
@@ -73,6 +73,15 @@ def project(cam: Camera, Xc, distort: bool = False):
         xn = distort_normalized(cam, xn)
     return torch.stack([cam.fx * xn[..., 0] + cam.cx,
                         cam.fy * xn[..., 1] + cam.cy], dim=-1)
+
+
+def unproject(cam: Camera, uv, undistort: bool = False):
+    """Pixel coords (...,2) -> unit-depth camera rays (...,3)."""
+    xn = torch.stack([(uv[..., 0] - cam.cx) / cam.fx,
+                      (uv[..., 1] - cam.cy) / cam.fy], dim=-1)
+    if undistort:
+        xn = undistort_normalized(cam, xn)
+    return torch.cat([xn, torch.ones_like(xn[..., :1])], dim=-1)
 
 
 def undistort_pixels(cam: Camera, uv):

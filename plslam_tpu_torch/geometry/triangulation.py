@@ -1,13 +1,16 @@
-"""Batched two-view triangulation of points.
+"""Batched two-view triangulation of points and line segments.
 
-Port of the point half of `plslam_tpu/geometry/triangulation.py`: every
-candidate triangulates at once through the DLT normal equations, solved in
-closed form (adjugate) instead of a per-point SVD. The line functions wait
-for the port of lines (ROADMAP Queue 1 item 11).
+Port of `plslam_tpu/geometry/triangulation.py`: every candidate point
+triangulates at once through the DLT normal equations, solved in closed form
+(adjugate) instead of a per-point SVD; a 3-D line is the intersection of the
+first view's endpoint rays with the plane back-projected from the second
+view's line.
 """
 from __future__ import annotations
 
 import torch
+
+from . import camera, se3
 
 
 def projection_matrix(K, T_cw):
@@ -64,6 +67,49 @@ def inv3x3(N, eps: float = 1e-12):
     """Batched closed-form 3x3 inverse (adjugate / det)."""
     adj, det = _adjugate(N)
     return adj * _inv_det(det, eps)[..., None, None]
+
+
+def backproject_plane(K, T_cw, line_2d):
+    """Plane (...,4) in world coordinates (n . X + d = 0, unnormalized)
+    through the camera center and the observed line `line_2d` (...,3), a
+    homogeneous line in undistorted pixels: P^T l."""
+    return torch.einsum("...ji,...j->...i", projection_matrix(K, T_cw),
+                        line_2d)
+
+
+def line_from_endpoints_2d(uv_a, uv_b):
+    """Homogeneous 2-D line (...,3) through two pixels, scaled so that
+    (l0, l1) is a unit normal."""
+    one = torch.ones_like(uv_a[..., :1])
+    l = torch.linalg.cross(torch.cat([uv_a, one], -1),
+                           torch.cat([uv_b, one], -1))
+    return l / torch.linalg.vector_norm(l[..., :2], dim=-1,
+                                        keepdim=True).clamp_min(1e-12)
+
+
+def intersect_ray_plane(origin, direction, plane):
+    """Rays (origin (...,3), direction (...,3)) against planes (...,4):
+    (points (...,3), ray parameter t (...,))."""
+    denom = torch.sum(plane[..., :3] * direction, dim=-1)
+    t = -(torch.sum(plane[..., :3] * origin, dim=-1) + plane[..., 3]) \
+        / torch.where(denom.abs() < 1e-12, 1e-12, denom)
+    return origin + t[..., None] * direction, t
+
+
+def triangulate_line_two_view(cam, T1_cw, T2_cw, uv1_a, uv1_b, uv2_a, uv2_b):
+    """Two-view line-segment triangulation (`Initializer::LineTriangulate`):
+    view 1's endpoint rays meet the plane back-projected from view 2's
+    infinite line. Returns (Xa_w, Xb_w, depth_a, depth_b), the depths in view
+    1 (the rays have unit z, so the ray parameter is the depth)."""
+    K = camera.intrinsics(cam, T1_cw.device).to(T1_cw.dtype)
+    plane2_w = backproject_plane(K, T2_cw, line_from_endpoints_2d(uv2_a, uv2_b))
+    T1_wc = se3.se3_inv(T1_cw)
+    R1_wc, c1_w = T1_wc[..., :3, :3], T1_wc[..., :3, 3]
+    ray = lambda uv: torch.einsum("...ij,...j->...i", R1_wc,
+                                  camera.unproject(cam, uv))
+    Xa, ta = intersect_ray_plane(c1_w, ray(uv1_a), plane2_w)
+    Xb, tb = intersect_ray_plane(c1_w, ray(uv1_b), plane2_w)
+    return Xa, Xb, ta, tb
 
 
 def parallax_cos(c1_w, c2_w, X_w):

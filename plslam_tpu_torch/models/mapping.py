@@ -1,10 +1,11 @@
 """Keyframe middle end: insertion, triangulation of new landmarks, local BA
 and culling (the LocalMapping stage) as in-place updates of `MapState`.
 
-Port of the points part of `plslam_tpu/models/mapping.py`. Whole keyframes
-are matched at once (Hamming matrix + epipolar or projection gates), every
-candidate triangulates in one batched DLT, and new landmarks take slots by
-prefix sum. Nothing here waits for the device: where the JAX package
+Port of the point and line parts of `plslam_tpu/models/mapping.py` (the
+depth-sensor, loop and global-BA parts wait for later items). Whole keyframes
+are matched at once (Hamming matrix + epipolar, projection or direction
+gates), every candidate triangulates at once (points by DLT, lines by
+ray-plane intersection), and new landmarks take slots by prefix sum. Nothing here waits for the device: where the JAX package
 branches on a device value (`lax.cond`), the port ANDs the condition into
 the creation or cull mask, which leaves the map exactly as the skipped branch
 would. Writes that the JAX package routes to a dropped out-of-bounds slot,
@@ -13,11 +14,13 @@ writes the selected lanes only, so unselected lanes can never race a real
 write (see ROADMAP Queue 3 for where the two differ).
 
 The searches here (epipolar-gated triangulation matching, per-keypoint
-projection windows, 3-D duplicate fusion) do not fit K1's gate set and stay
-plain PyTorch, as the JAX package keeps them in XLA.
+projection windows, direction-gated mutual-best line matching, 3-D duplicate
+fusion) do not fit K1's gate set and stay plain PyTorch, as the JAX package
+keeps them in XLA.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -27,9 +30,10 @@ from ..mapstate import state as mstate
 from ..mapstate.state import MapState
 from ..ops import hamming
 from ..ops.extract import PointFeatures
+from ..ops.lines import LineFeatures, _angle_diff
 from ..optim import local_ba
 from ..vocab import bow
-from .tracking import _bitmap, _row
+from .tracking import _bitmap, _pixels, _row
 
 TH_LOW = 50
 CHI2_2D = 5.991
@@ -62,39 +66,55 @@ def _index(k, device, dtype=torch.long):
     return torch.full((), k, dtype=dtype, device=device)
 
 
-def _write_points(ms: MapState, slots, a, values: dict):
+def _write_slots(ms: MapState, slots, a, values: dict):
     """ms.<name>[slots[i]] = values[name][i] for the accepted lanes a."""
     for name, value in values.items():
         _scatter_rows(getattr(ms, name), slots, a, value)
 
 
 def insert_keyframe(cam, ms: MapState, feats: PointFeatures, T, matched_pt,
-                    frame_id, scale_factors,
-                    desc_majority: bool = False) -> MapState:
+                    frame_id, scale_factors, lfeats: LineFeatures = None,
+                    matched_ln=None, desc_majority: bool = False) -> MapState:
     """Promote the current frame to keyframe `ms.n_kf` (`CreateNewKeyFrame`
     + `ProcessNewKeyFrame`), in place: write its keypoints and BoW
-    signature, bind the tracked landmarks `matched_pt` (-1 = none), and
-    refresh their observation counts, mean viewing directions and
-    descriptors (latest observation; with `desc_majority`, the bitwise
-    strict majority of the observed descriptors once a point has 3).
-    `matched_pt` must bind each landmark at most once, as tracking's
+    signature (and its line segments, with `lfeats`), bind the tracked
+    landmarks `matched_pt` and map lines `matched_ln` (-1 = none), and
+    refresh their observation counts; points also their mean viewing
+    directions and descriptors (latest observation; with `desc_majority`,
+    the bitwise strict majority of the observed descriptors once a point
+    has 3), lines their descriptors (latest observation). `matched_pt` and
+    `matched_ln` must bind each landmark at most once, as tracking's
     deduplicated matches do. A full keyframe array drops the write, as the
     JAX package's scatter does."""
     del cam, scale_factors  # kept for the JAX signature
     device = T.device
     k = ms.n_kf
     P = ms.pt_xyz.shape[0]
-    for name, value in (
-            ("kf_T", T), ("kf_valid", torch.ones((), dtype=torch.bool,
-                                                 device=device)),
+    rows = [("kf_T", T), ("kf_valid", torch.ones((), dtype=torch.bool,
+                                                  device=device)),
             ("kf_frame_id", torch.full((), frame_id, dtype=torch.int32,
                                        device=device)),
             ("kf_uv", feats.uv_un), ("kf_octave", feats.octave),
             ("kf_angle", feats.angle), ("kf_desc", feats.desc),
             ("kf_kp_valid", feats.valid), ("kf_pt_idx", matched_pt),
-            ("kf_bow", bow.bow_vector(feats.desc, feats.valid))):
+            ("kf_bow", bow.bow_vector(feats.desc, feats.valid))]
+    if lfeats is not None:
+        if matched_ln is None:
+            matched_ln = torch.full(lfeats.valid.shape, -1, dtype=torch.int32,
+                                    device=device)
+        rows += [("kf_ln_uv", torch.stack([lfeats.uv_a, lfeats.uv_b], -2)),
+                 ("kf_ln_l2d", lfeats.l2d), ("kf_ln_desc", lfeats.desc),
+                 ("kf_ln_valid", lfeats.valid), ("kf_ln_idx", matched_ln)]
+    for name, value in rows:
         _set_row(getattr(ms, name), k, value)
     ms.n_kf += 1
+    if lfeats is not None:
+        # accepted lanes only: the JAX package's unmatched lanes rewrite line
+        # 0's old descriptor over its update (ROADMAP Queue 3)
+        has_l = matched_ln >= 0
+        lid = matched_ln.clamp(0, ms.ln_valid.shape[0] - 1).long()
+        ms.ln_n_obs.index_add_(0, lid, has_l.to(torch.int32))
+        _scatter_rows(ms.ln_desc, lid, has_l, lfeats.desc)
 
     has = matched_pt >= 0
     pid = matched_pt.clamp(0, P - 1).long()
@@ -145,7 +165,7 @@ def create_points_from_depth(cam, ms: MapState, k, kp_depth, scale_factors,
     max_dist = d * scale_factors[_row(ms.kf_octave, k).long()]
     desc = _row(ms.kf_desc, k)
     ones = torch.ones_like(slots, dtype=torch.int32)
-    _write_points(ms, slots, a, {
+    _write_slots(ms, slots, a, {
         "pt_xyz": Xw, "pt_desc": desc,
         "pt_normal": (Xw - c_w) / d[:, None].clamp_min(1e-6),
         "pt_min_dist": max_dist / scale_factors[-1], "pt_max_dist": max_dist,
@@ -251,7 +271,7 @@ def create_new_points(cam, ms: MapState, k_new, k_ref, sigma2_levels,
     # scale-invariance range from the octave (MapPoint::UpdateNormalAndDepth)
     max_dist = d1 * scale_factors[oct1]
     ones_i = torch.ones_like(slots, dtype=torch.int32)
-    _write_points(ms, slots, a, {
+    _write_slots(ms, slots, a, {
         "pt_xyz": X, "pt_desc": desc1,
         "pt_normal": (X - c1) / d1[:, None].clamp_min(1e-6),
         "pt_min_dist": max_dist / scale_factors[-1],
@@ -266,6 +286,138 @@ def create_new_points(cam, ms: MapState, k_new, k_ref, sigma2_levels,
     row_ref = _row(ms.kf_pt_idx, k_ref)
     _scatter_rows(row_ref, idx2, a, pid)
     _set_row(ms.kf_pt_idx, k_ref, row_ref)
+    return ms
+
+
+def _segment_angle(uv):
+    """Direction angle in [0, pi) of segments (..., 2, 2) [A, B]."""
+    return torch.remainder(torch.atan2(uv[..., 1, 1] - uv[..., 0, 1],
+                                       uv[..., 1, 0] - uv[..., 0, 0]),
+                           torch.pi)
+
+
+def _line_dist(l, q):
+    """|l . (q, 1)| of lines l (..., 3) and pixels q (..., 2)."""
+    return (l[..., 0] * q[..., 0] + l[..., 1] * q[..., 1] + l[..., 2]).abs()
+
+
+def third_view_support(cam, ms: MapState, k3, Xa, Xb,
+                       angle_tol: float = 0.3, dist_tol: float = 4.0):
+    """3-view consistency of candidate 3-D lines (Xa, Xb) (Mc, 3)
+    (`CreateNewMapLinesConstraint`): (Mc,) bool, True where both endpoints
+    lie in front of keyframe k3 and some valid segment of k3 agrees with the
+    projection in direction (< `angle_tol`) and passes within `dist_tol` px
+    of both projected endpoints."""
+    k3 = _index(k3, Xa.device)
+    T3 = _row(ms.kf_T, k3)
+    Pa, Pb = se3.transform(T3, Xa), se3.transform(T3, Xb)
+    qa, qb = _pixels(cam, Pa), _pixels(cam, Pb)
+    l3 = _row(ms.kf_ln_l2d, k3)[None, :, :]                       # (1, M3, 3)
+    d_ang = _angle_diff(_segment_angle(torch.stack([qa, qb], 1))[:, None],
+                        _segment_angle(_row(ms.kf_ln_uv, k3))[None, :])
+    near = ((_line_dist(l3, qa[:, None, :]) < dist_tol)
+            & (_line_dist(l3, qb[:, None, :]) < dist_tol))
+    ok = near & (d_ang < angle_tol) & _row(ms.kf_ln_valid, k3)[None, :]
+    return (Pa[:, 2] > 0) & (Pb[:, 2] > 0) & ok.any(dim=1)
+
+
+def create_new_lines(cam, ms: MapState, k_new, k_ref, nn_ratio: float = 0.75,
+                     max_dist: int = 50, angle_tol: float = 0.29,
+                     k_third=None, min_cond: float = 2e-4,
+                     enabled=True) -> MapState:
+    """Triangulate new map lines between keyframes k_new and k_ref (the
+    2-view core of `CreateNewMapLines`), in place: mutual-best Hamming
+    matching of unbound segments with direction agreement, ratio test and
+    the gap gate second - best > 0.5 x the MAD of the match distances;
+    plane-intersection triangulation; finite, non-degenerate planes (cos <
+    0.9998), cheirality in both views, endpoint reprojection onto the
+    observed lines < 4 px, an extent sane against the median depth of the
+    map's points; with `k_third`, support in that keyframe
+    (`third_view_support`; a negative 0-d index means none); the
+    conditioning gate (b / z) sin(theta) >= `min_cond`, whose ratio to the
+    gate (clipped to 1) is the line's `ln_cond`. New lines take slots by
+    prefix sum and bind in both keyframes. `enabled` (bool or 0-d bool
+    tensor) ANDs into the creation mask: False leaves the map as it was."""
+    device = ms.ln_xyz.device
+    Lc, M = ms.ln_valid.shape[0], ms.kf_ln_valid.shape[1]
+    k_new, k_ref = _index(k_new, device), _index(k_ref, device)
+    T1, T2 = _row(ms.kf_T, k_new), _row(ms.kf_T, k_ref)
+    rows1 = _row(ms.kf_ln_idx, k_new)
+    free1 = _row(ms.kf_ln_valid, k_new) & (rows1 < 0)
+    free2 = _row(ms.kf_ln_valid, k_ref) & (_row(ms.kf_ln_idx, k_ref) < 0)
+    uv1, uv2 = _row(ms.kf_ln_uv, k_new), _row(ms.kf_ln_uv, k_ref)  # (M, 2, 2)
+    d_ang = _angle_diff(_segment_angle(uv1)[:, None],
+                        _segment_angle(uv2)[None, :])
+    desc1 = _row(ms.kf_ln_desc, k_new)
+    D = hamming.distance_matrix(desc1, _row(ms.kf_ln_desc, k_ref))
+    mask = free1[:, None] & free2[None, :] & (d_ang < angle_tol)
+    idx2, best, second, mutual = hamming.mutual_best(D, mask)
+    ok = (best <= max_dist) & (best.to(torch.float32)
+                               < nn_ratio * second.to(torch.float32))
+    # adaptive 1st-vs-2nd gap gate scaled by the MAD of the match distances
+    mad = hamming.vector_mad(best, ok & (best < hamming.INVALID))
+    ok = ok & ((second - best).to(torch.float32) > 0.5 * mad) & mutual
+
+    uv2m = uv2[idx2]
+    Xa, Xb, da, db = tri.triangulate_line_two_view(
+        cam, T1, T2, uv1[:, 0], uv1[:, 1], uv2m[:, 0], uv2m[:, 1])
+    finite = torch.isfinite(Xa).all(-1) & torch.isfinite(Xb).all(-1)
+    # plane-normal angle > ~1 deg (parallax degeneracy)
+    K = camera.intrinsics(cam, device)
+    l1 = tri.line_from_endpoints_2d(uv1[:, 0], uv1[:, 1])
+    l2 = tri.line_from_endpoints_2d(uv2m[:, 0], uv2m[:, 1])
+    n1 = tri.backproject_plane(K, T1, l1)[:, :3]
+    n2 = tri.backproject_plane(K, T2, l2)[:, :3]
+    cosn = torch.sum(n1 * n2, -1).abs() / (
+        torch.linalg.vector_norm(n1, dim=-1)
+        * torch.linalg.vector_norm(n2, dim=-1)).clamp_min(1e-9)
+
+    def reproj_line_err(T, l):
+        Pa, Pb = se3.transform(T, Xa), se3.transform(T, Xb)
+        err = torch.maximum(_line_dist(l, _pixels(cam, Pa)),
+                            _line_dist(l, _pixels(cam, Pb)))
+        return err, (Pa[:, 2] > 0) & (Pb[:, 2] > 0)
+
+    e1, chei1 = reproj_line_err(T1, l1)
+    e2, chei2 = reproj_line_err(T2, l2)
+    # extent against the median depth of the map's points; the median of
+    # the NaN-filled slots is NaN (so 1.0) until every slot is valid, as in
+    # the JAX package (ROADMAP Queue 3)
+    c1 = se3.se3_inv(T1)[:3, 3]
+    c2 = se3.se3_inv(T2)[:3, 3]
+    pt_d = torch.linalg.vector_norm(ms.pt_xyz - c1, dim=-1)
+    scene_d = torch.nan_to_num(torch.quantile(
+        torch.where(ms.pt_valid, pt_d, torch.nan), 0.5), nan=1.0)
+    sane = ((torch.linalg.vector_norm(Xb - Xa, dim=-1) < 3.0 * scene_d)
+            & (torch.linalg.vector_norm(0.5 * (Xa + Xb) - c1, dim=-1)
+               < 10.0 * scene_d))
+    create = (ok & finite & (cosn < 0.9998) & chei1 & chei2 & (e1 < 4.0)
+              & (e2 < 4.0) & (da > 0) & (db > 0) & sane & enabled)
+    if k_third is not None:
+        k3 = _index(k_third, device)
+        create = create & ((k3 < 0) | third_view_support(
+            cam, ms, k3.clamp_min(0), Xa, Xb))
+    # baseline-aware conditioning gate: (b / z) sin(theta)
+    z_mid = (0.5 * (da + db)).clamp_min(1e-6)
+    sin_th = torch.sqrt((1.0 - cosn * cosn).clamp_min(0.0))
+    metric = (torch.linalg.vector_norm(c1 - c2) / z_mid) * sin_th
+    create = create & (metric >= min_cond)
+    cond = (metric / max(min_cond, 1e-9)).clamp(0.0, 1.0)
+
+    slots, a, n_ln_new = mstate.append_slots(ms.n_ln, create, Lc)
+    ones_i = torch.ones_like(slots, dtype=torch.int32)
+    _write_slots(ms, slots, a, {
+        "ln_xyz": torch.stack([Xa, Xb], dim=1), "ln_desc": desc1,
+        "ln_valid": a, "ln_first_kf": k_new.to(torch.int32).expand_as(slots),
+        "ln_n_obs": 2 * ones_i, "ln_visible": ones_i, "ln_found": ones_i,
+        "ln_cond": cond})
+    ms.n_ln.copy_(n_ln_new)
+    # bind in both keyframes; k_ref's row is read after k_new's is written
+    lid = torch.where(a, slots.to(torch.int32), -1)
+    _set_row(ms.kf_ln_idx, k_new, torch.where(a, lid, rows1))
+    row_ref = _row(ms.kf_ln_idx, k_ref)
+    _scatter_rows(row_ref, idx2, a, lid)
+    _set_row(ms.kf_ln_idx, k_ref, row_ref)
     return ms
 
 
@@ -400,6 +552,50 @@ def fuse_duplicate_points(ms: MapState, n_recent: int = 1024,
                                    ms.kf_pt_idx))
     ms.pt_valid[r_ids] = r_valid & ~has_dup
     ms.pt_n_obs.copy_(_refresh_n_obs(ms))
+    return ms
+
+
+def fuse_duplicate_lines(ms: MapState, n_recent: int = 256,
+                         max_mid_dist: float = 0.1, angle_tol: float = 0.15,
+                         max_hamming: int = 50) -> MapState:
+    """Duplicate map-line fusion (`MapLine::Replace` semantics), in place:
+    each of the last `n_recent` allocated lines whose midpoint lies within
+    `max_mid_dist` of an older valid line's, within `angle_tol` of its
+    direction and Hamming <= `max_hamming`, is merged into the first such
+    line, which takes the larger conditioning of the two; bindings are
+    rewired map-wide and observation counts recounted. With fewer than
+    `n_recent` slots the recent ids repeat the last slot; the repeats
+    write what the first write of that slot wrote."""
+    Lc = ms.ln_valid.shape[0]
+    device = ms.ln_xyz.device
+    start = (ms.n_ln - n_recent).clamp_min(0)
+    r_ids = (start + torch.arange(n_recent, device=device)).clamp(0, Lc - 1)
+    r_valid = ms.ln_valid[r_ids]
+    mid = 0.5 * (ms.ln_xyz[:, 0] + ms.ln_xyz[:, 1])                    # (L, 3)
+    dirs = ms.ln_xyz[:, 1] - ms.ln_xyz[:, 0]
+    dirs = dirs / torch.linalg.vector_norm(dirs, dim=-1,
+                                           keepdim=True).clamp_min(1e-9)
+    d_mid = torch.linalg.vector_norm(mid[r_ids][:, None, :]
+                                     - mid[None, :, :], dim=-1)      # (R, L)
+    cos_d = torch.sum(dirs[r_ids][:, None, :] * dirs[None, :, :], -1).abs()
+    D = hamming.distance_matrix(ms.ln_desc[r_ids], ms.ln_desc)
+    older = torch.arange(Lc, device=device)[None, :] < r_ids[:, None]
+    cand = (r_valid[:, None] & ms.ln_valid[None, :] & older
+            & (d_mid < max_mid_dist) & (cos_d > math.cos(angle_tol))
+            & (D <= max_hamming))
+    target = torch.argmax(cand.to(torch.uint8), dim=1)   # first older match
+    has_dup = cand.any(dim=1)
+    repl = torch.arange(Lc, device=device)
+    repl[r_ids] = torch.where(has_dup, target, r_ids)
+    lid = ms.kf_ln_idx.clamp(0, Lc - 1).long()
+    ms.kf_ln_idx.copy_(torch.where(ms.kf_ln_idx >= 0, repl[lid],
+                                   ms.kf_ln_idx))
+    ms.ln_valid[r_ids] = r_valid & ~has_dup
+    ms.ln_n_obs.zero_().index_add_(
+        0, ms.kf_ln_idx.clamp(0, Lc - 1).reshape(-1).long(),
+        (ms.kf_ln_idx >= 0).reshape(-1).to(torch.int32))
+    ms.ln_cond.scatter_reduce_(0, target, torch.where(
+        has_dup, ms.ln_cond[r_ids], 0.0), reduce="amax")
     return ms
 
 
@@ -640,25 +836,27 @@ def process_keyframe(cam, ms: MapState, feats, lfeats, T, matched_pt,
                      sin_covis: bool = False, sin_whole_map: bool = False,
                      sin_reverse_n: int = 2) -> MapState:
     """The keyframe chain, in place: insert -> triangulate new points
-    against up to `tri_covis_k` + 1 partners -> fuse duplicates -> search
-    in neighbours -> dedup rows -> local BA (4 + 8 iterations) -> cull
-    points -> cull keyframes when `do_kf_cull`.
+    against up to `tri_covis_k` + 1 partners -> (triangulate new lines
+    against 3 partners -> fuse duplicate lines) -> fuse duplicate points ->
+    search in neighbours -> dedup rows -> local BA (4 + 8 iterations) ->
+    cull points and lines -> cull keyframes when `do_kf_cull`.
 
     Partners: with `tri_covis`, the top covisible keyframes, deepest
     baseline first, each falling back to its rung of the 2^i-back ladder
     when it shares < 10 points; else the fixed {8, 4, 2}-back ladder; then
-    always the previous keyframe. A partner that does not exist masks its
-    creation instead of branching, so nothing waits for the device. Lines
-    (`lfeats`) and depth sensors (`use_depth`) are not ported yet."""
-    del matched_ln, kp_depth, max_depth, bf   # lines and depth only
-    if lfeats is not None:
-        raise NotImplementedError("line features in the keyframe chain are "
-                                  "not ported yet: ROADMAP Queue 1 item 11")
+    always the previous keyframe. With line features `lfeats` (bound to the
+    map lines `matched_ln`), new lines then triangulate against the 1, 2
+    and 3 keyframes back, each with 3-view support in the keyframe behind
+    it where that exists, and duplicate lines fuse. A partner that does not
+    exist masks its creation instead of branching, so nothing waits for the
+    device. Depth sensors (`use_depth`) are not ported yet."""
+    del kp_depth, max_depth, bf   # depth only
     if use_depth:
         raise NotImplementedError("depth-sensor keyframes are not ported "
                                   "yet: ROADMAP Queue 1 item 14")
     k_new = ms.n_kf.to(torch.long)         # a copy: insert bumps n_kf
     insert_keyframe(cam, ms, feats, T, matched_pt, frame_id, scale_factors,
+                    lfeats=lfeats, matched_ln=matched_ln,
                     desc_majority=desc_majority)
     triangulate = lambda kr, enabled: create_new_points(
         cam, ms, k_new, kr, sigma2_levels, scale_factors, enabled=enabled)
@@ -682,6 +880,13 @@ def process_keyframe(cam, ms: MapState, feats, lfeats, T, matched_pt,
         for back in (8, 4, 2):
             triangulate((k_new - back).clamp_min(0), k_new >= back)
     triangulate((k_new - 1).clamp_min(0), True)
+    if lfeats is not None:
+        for back in (1, 2, 3):
+            create_new_lines(cam, ms, k_new, (k_new - back).clamp_min(0),
+                             k_third=torch.where(k_new >= back + 1,
+                                                 k_new - back - 1, -1),
+                             enabled=k_new >= back)
+        fuse_duplicate_lines(ms)
     fuse_duplicate_points(ms)
     search_in_neighbors(cam, ms, k_new, covis_targets=sin_covis,
                         whole_map=sin_whole_map, n_reverse=sin_reverse_n)

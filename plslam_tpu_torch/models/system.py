@@ -1,11 +1,12 @@
 """System facade: `System(cfg).track_monocular(img, t)`.
 
-Port of the monocular point path of `plslam_tpu/models/system.py`. The host
-loop owns the `MapState` and calls the ported stages in the JAX package's
-order: extraction -> two-view initialization (`match_frames`, H/F RANSAC,
-initial map + local BA) -> per-frame `track_local_map` -> keyframe decision
--> the keyframe chain (`mapping.process_keyframe`), synchronously at
-keyframe creation.
+Port of the monocular path of `plslam_tpu/models/system.py`, points and
+lines. The host loop owns the `MapState` and calls the ported stages in the
+JAX package's order: extraction (points, and with `use_lines` line segments)
+-> two-view initialization (`match_frames`, H/F RANSAC, initial map with its
+lines + local BA) -> per-frame `track_local_map` -> keyframe decision -> the
+keyframe chain (`mapping.process_keyframe`), synchronously at keyframe
+creation.
 
 Host reads: a tracked frame reads back one 6-scalar row (`_resolve_pending`);
 an initialization attempt reads its feature and match counts, its success
@@ -24,10 +25,10 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..geometry import camera, se3
+from ..geometry import camera, se3, triangulation
 from ..mapstate import state as mstate
 from ..models import mapping, tracking
-from ..ops import extract
+from ..ops import extract, lines
 from ..solvers import twoview
 
 
@@ -159,8 +160,6 @@ LOST = "LOST"
 
 # options whose modules are not ported yet: (test, what, ROADMAP item)
 _UNPORTED = (
-    (lambda c: c.use_lines, "use_lines (line features)", 11),
-    (lambda c: bool(c.mask_path), "mask_path (line suppression mask)", 11),
     (lambda c: c.use_loop_closing, "use_loop_closing", 13),
     (lambda c: c.young_gba_until_kf > 0, "young_gba_until_kf (global BA)", 13),
     (lambda c: c.periodic_gba_every_kf > 0,
@@ -178,7 +177,7 @@ def _not_ported(what: str, item: int):
 
 
 class System:
-    """Monocular point SLAM on one device. Public surface as the JAX
+    """Monocular point-and-line SLAM on one device. Public surface as the JAX
     package's: `track_monocular`, `trajectory`, `poses`, the TUM/KITTI
     trajectory writers, `n_map_points`, `n_keyframes`, `reset`, `flush`,
     `shutdown` and the localization-mode toggles."""
@@ -209,6 +208,22 @@ class System:
             self.ext_cfg, self.device)
         self.extractor = extract.PointExtractor(
             self.ext_cfg, c.height, c.width).to(self.device)
+        self.line_detector = None
+        if c.use_lines:
+            # the reference scales min_line_length by min(W, H); 0 keeps the
+            # detector's floor
+            self.line_detector = lines.LineDetector(
+                c.height, c.width, n_out=c.n_lf, block=c.ln_detect_block,
+                min_length=max(c.ln_detect_min_length,
+                               c.min_line_length * min(c.width, c.height)),
+            ).to(self.device)
+        self._line_mask = None
+        if c.mask_path:
+            import cv2   # only this option needs OpenCV
+            m = cv2.imread(c.mask_path, 0)
+            if m is not None:
+                self._line_mask = torch.from_numpy(
+                    (m > 127).astype(np.float32)).to(self.device)
 
         # the stages as attributes, so that a caller can wrap one (to time
         # it, for example)
@@ -216,13 +231,15 @@ class System:
         self._track_update = partial(
             tracking.track_local_map, cam, scale_factors=self.scale_factors,
             sigma2_levels=self.sigma2, n_levels=c.n_levels,
-            scale=c.scale_factor, max_step_t=c.max_step_t,
-            max_step_r=c.max_step_r, update_stats=True)
+            scale=c.scale_factor, line_info=c.track_line_info,
+            max_step_t=c.max_step_t, max_step_r=c.max_step_r,
+            update_stats=True)
         self._match_frames = tracking.match_frames
         self._init_two_view = partial(twoview.initialize_two_view,
                                       K=camera.intrinsics(cam, self.device))
         self._insert_kf = partial(mapping.insert_keyframe, cam,
                                   scale_factors=self.scale_factors)
+        self._create_lines = partial(mapping.create_new_lines, cam)
         self._local_ba = partial(mapping.run_local_ba, cam,
                                  sigma2_levels=self.sigma2,
                                  window=c.ba_window, p_ba=c.ba_points,
@@ -248,7 +265,7 @@ class System:
         self.n_kf_host = 0
         self.last_kf_frame = -1
         self.ref_kf_matches = 0
-        self._init_feats = None
+        self._init_feats = self._init_lfeats = None
         self._init_frame_id = -1
         self._init_ts = None
         # per-frame poses relative to their reference keyframe, re-anchored
@@ -260,12 +277,24 @@ class System:
         self.stats: list[dict] = []
 
     def _extract(self, img):
-        """Features of one grayscale frame (uint8 on the wire, float32
-        compute), with undistorted keypoints."""
+        """(point features with undistorted keypoints, line features with
+        undistorted endpoints or None) of one grayscale frame (uint8 on the
+        wire, float32 compute)."""
         if not torch.is_tensor(img):
             img = torch.from_numpy(np.asarray(img).astype(np.uint8))
-        f = self.extractor(img.to(self.device).to(torch.float32))
-        return f._replace(uv_un=camera.undistort_pixels(self.cam, f.uv))
+        img = img.to(self.device).to(torch.float32)
+        f = self.extractor(img)
+        f = f._replace(uv_un=camera.undistort_pixels(self.cam, f.uv))
+        return f, self._detect_lines(img) if self.cfg.use_lines else None
+
+    def _detect_lines(self, img):
+        """Line features of a float32 frame, endpoints undistorted and the
+        infinite lines recomputed from them."""
+        lf = self.line_detector(img, self._line_mask)
+        ua = camera.undistort_pixels(self.cam, lf.uv_a)
+        ub = camera.undistort_pixels(self.cam, lf.uv_b)
+        return lf._replace(uv_a=ua, uv_b=ub,
+                           l2d=triangulation.line_from_endpoints_2d(ua, ub))
 
     # ------------------------------------------------------------------
     def track_monocular(self, img, timestamp: float):
@@ -274,11 +303,11 @@ class System:
         not initialized (and on an auto-reset)."""
         t0 = time.perf_counter()
         self.frame_id += 1
-        feats = self._extract(img)
+        feats, lfeats = self._extract(img)
         if self.state == NOT_INITIALIZED:
-            T = self._try_initialize(feats, timestamp)
+            T = self._try_initialize(feats, lfeats, timestamp)
         else:
-            T = self._track_frame(feats, timestamp)
+            T = self._track_frame(feats, lfeats, timestamp)
         self.timings.append(time.perf_counter() - t0)
         return T
 
@@ -295,21 +324,21 @@ class System:
         raise _not_ported("track_rgbd", 14)
 
     # ------------------------------------------------------------------
-    def _set_anchor(self, feats, timestamp):
-        self._init_feats = feats
+    def _set_anchor(self, feats, lfeats, timestamp):
+        self._init_feats, self._init_lfeats = feats, lfeats
         self._init_frame_id = self.frame_id
         self._init_ts = timestamp
 
-    def _try_initialize(self, feats, timestamp):
+    def _try_initialize(self, feats, lfeats, timestamp):
         n_valid = int(feats.valid.sum())
         if self._init_feats is None or n_valid < self.cfg.min_init_matches:
             if n_valid >= self.cfg.min_init_matches:
-                self._set_anchor(feats, timestamp)
+                self._set_anchor(feats, lfeats, timestamp)
             return None
         idx2, ok = self._match_frames(self._init_feats, feats)
         if int(ok.sum()) < self.cfg.min_init_matches:
             # too few matches: the current frame becomes the new anchor
-            self._set_anchor(feats, timestamp)
+            self._set_anchor(feats, lfeats, timestamp)
             return None
         # a fresh generator per attempt, as the JAX package reuses its key
         gen = torch.Generator().manual_seed(self.cfg.seed)
@@ -317,15 +346,16 @@ class System:
                                   feats.uv_un[idx2], ok)
         if not bool(res.success):
             return None
-        self._create_initial_map(feats, idx2, res, timestamp)
+        self._create_initial_map(feats, lfeats, idx2, res, timestamp)
         self.state = OK
         self._log_frame(timestamp, np.eye(4, dtype=np.float32), 1)
         return self.ms.kf_T[1].clone()
 
-    def _create_initial_map(self, feats, idx2, res: twoview.TwoViewResult,
-                            timestamp):
-        """`CreateInitialMapMonoWithLine` minus lines: two keyframes, the
-        triangulated points scaled to unit median depth, then local BA."""
+    def _create_initial_map(self, feats, lfeats, idx2,
+                            res: twoview.TwoViewResult, timestamp):
+        """`CreateInitialMapMonoWithLine`: two keyframes with their line
+        segments, the triangulated points scaled to unit median depth, the
+        lines triangulated between the two keyframes, then local BA."""
         good = res.good.cpu().numpy()
         X = res.X.cpu().numpy()
         med_depth = float(np.median(X[good][:, 2])) if good.any() else 1.0
@@ -344,8 +374,9 @@ class System:
         dev = lambda a: torch.from_numpy(a).to(self.device)
         f1, ms = self._init_feats, self.ms
         self._insert_kf(ms, f1, torch.eye(4, device=self.device), dev(pid),
-                        self._init_frame_id)
-        self._insert_kf(ms, feats, dev(T2), dev(pid2), self.frame_id)
+                        self._init_frame_id, lfeats=self._init_lfeats)
+        self._insert_kf(ms, feats, dev(T2), dev(pid2), self.frame_id,
+                        lfeats=lfeats)
 
         # landmark geometry: insert_keyframe only binds observations
         sel = np.nonzero(good)[0]
@@ -362,6 +393,8 @@ class System:
         ms.pt_first_kf[ids] = 0
         for name in ("pt_n_obs", "pt_visible", "pt_found"):
             getattr(ms, name)[ids] = 2
+        if self.cfg.use_lines:
+            self._create_lines(ms, 1, 0)
         self._local_ba(ms)
 
         self.T_last = ms.kf_T[1].clone()
@@ -373,18 +406,19 @@ class System:
         self._log_frame(self._init_ts, np.eye(4, dtype=np.float32), 0)
 
     # ------------------------------------------------------------------
-    def _track_frame(self, feats, timestamp):
+    def _track_frame(self, feats, lfeats, timestamp):
         if self.state == LOST:
             return self._relocalize_frame(feats, timestamp)
         res, self.ms = self._track_update(self.ms, feats, self.T_last,
+                                          lfeats=lfeats,
                                           velocity=self.velocity)
         self.velocity = res.velocity
         self.T_last = res.T
         self._log_frame(timestamp, res.T_rel, self.n_kf_host - 1)
-        self._resolve_pending(res, feats, timestamp)
+        self._resolve_pending(res, feats, lfeats, timestamp)
         return res.T
 
-    def _resolve_pending(self, res, feats, timestamp):
+    def _resolve_pending(self, res, feats, lfeats, timestamp):
         """The frame's LOST / keyframe decisions, from its one readback."""
         n_inl, n_ln_inl, n_matched, nref3, _, _ = res.scalars.tolist()
         if n_inl < self.cfg.min_track_inliers:
@@ -393,8 +427,8 @@ class System:
             return
         self.state = OK
         made_kf = False if self.cfg.localization_only else \
-            self._maybe_keyframe(feats, res, timestamp, n_inl, n_matched,
-                                 nref3)
+            self._maybe_keyframe(feats, lfeats, res, timestamp, n_inl,
+                                 n_matched, nref3)
         self.stats.append({"inliers": n_inl, "kf": made_kf, "lost": False,
                            "line_inliers": n_ln_inl})
 
@@ -408,8 +442,9 @@ class System:
         raise _not_ported("relocalization (LOST with more than 5 "
                           "keyframes)", 12)
 
-    def _maybe_keyframe(self, feats, res: tracking.TrackResult, timestamp,
-                        n_inl: int, n_matched: int, nref3: int) -> bool:
+    def _maybe_keyframe(self, feats, lfeats, res: tracking.TrackResult,
+                        timestamp, n_inl: int, n_matched: int,
+                        nref3: int) -> bool:
         """`NeedNewKeyFrame` policy: the minimum interval elapsed and the
         tracking weakened against the reference keyframe (inliers below
         kf_ref_ratio of its >= 3-observation points, or of the matches
@@ -422,7 +457,7 @@ class System:
         weak = n_inl < self.cfg.kf_ref_ratio * ref_base
         if not (weak and n_inl > 15 and since >= self.cfg.kf_min_interval):
             return False
-        self._process_kf(self.ms, feats, None, res.T, res.matched_pt,
+        self._process_kf(self.ms, feats, lfeats, res.T, res.matched_pt,
                          res.matched_ln, self.frame_id, None,
                          do_kf_cull=n_kf % 4 == 3)
         self.n_kf_host = n_kf + 1

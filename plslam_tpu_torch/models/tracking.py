@@ -1,11 +1,13 @@
 """Per-frame tracking against the local map.
 
-Port of `plslam_tpu/models/tracking.py` for points (`lfeats=None`; lines and
-stereo edges are not ported yet). The step is branch-free and never waits
-for the device: every decision is a `torch.where`, every scatter writes
-through clamped indices or a dump slot, and the three Hamming searches go
-through `ops/gated_match.gated_hamming_best2` (the CUDA kernel on CUDA
-tensors), so the N x P distance matrix is never formed on the card.
+Port of `plslam_tpu/models/tracking.py` for points and lines (stereo edges
+are not ported yet). The step is branch-free and never waits for the device:
+every decision is a `torch.where`, every scatter writes through clamped
+indices or a dump slot, and the three point searches go through
+`ops/gated_match.gated_hamming_best2` (the CUDA kernel on CUDA tensors), so
+the N x P distance matrix is never formed on the card. The line search gates
+on direction, perpendicular distance, overlap and length ratio, which are not
+K1's gates; it stays plain PyTorch (M x L, a few hundred each).
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ from ..geometry import se3
 from ..mapstate.state import MapState
 from ..ops import gated_match, hamming
 from ..ops.extract import PointFeatures
+from ..ops.lines import LineFeatures, _angle_diff
 from ..optim import pose_opt
 
 TH_HIGH = 100
@@ -53,6 +56,14 @@ def _bitmap(n: int, idx, on):
     hits.index_add_(0, idx.reshape(-1).clamp(0, n - 1).long(),
                     on.reshape(-1).to(torch.int32))
     return hits > 0
+
+
+def _pixels(cam, Xc):
+    """Pinhole pixels of camera-frame points (..., 3) as the JAX line code
+    computes them: f * x * (1 / max(z, 1e-6)) + c."""
+    iz = 1.0 / Xc[..., 2].clamp_min(1e-6)
+    return torch.stack([cam.fx * Xc[..., 0] * iz + cam.cx,
+                        cam.fy * Xc[..., 1] * iz + cam.cy], -1)
 
 
 def predict_scale(dist, max_dist, scale: float, n_levels: int):
@@ -127,9 +138,76 @@ def _match_against_map(cam, ms: MapState, feats: PointFeatures, T,
     return best_idx, matched, visible
 
 
+def _match_lines_against_map(cam, ms: MapState, lfeats: LineFeatures, T,
+                             radius: float = 10.0, angle_tol: float = 0.29,
+                             max_dist: int = 80):
+    """Projection search of the frame's line features against the map lines
+    at pose T (`LSDmatcher::SearchByProjection`): both endpoints in front,
+    the projected midpoint in the image, the viewing direction within 60
+    degrees of the mean direction from the observing keyframes (derived from
+    the current bindings; unobserved lines pass), then per pair direction
+    within `angle_tol`, the feature midpoint within `radius` px of the
+    projected infinite line, along-line overlap and a length ratio >= 0.5;
+    Hamming <= `max_dist`, one feature per map line. The search is plain
+    PyTorch: its gates are not K1's.
+
+    Returns (best_idx (M,), matched (M,) bool, visible (L,) bool)."""
+    A, B = ms.ln_xyz[:, 0], ms.ln_xyz[:, 1]
+    Ac, Bc = se3.transform(T, A), se3.transform(T, B)
+    ua, ub = _pixels(cam, Ac), _pixels(cam, Bc)
+    mid = 0.5 * (ua + ub)
+    in_img = ((mid[:, 0] >= 0) & (mid[:, 0] < cam.width)
+              & (mid[:, 1] >= 0) & (mid[:, 1] < cam.height))
+    visible = ms.ln_valid & (Ac[:, 2] > 0) & (Bc[:, 2] > 0) & in_img
+
+    # viewing-direction gate (`MapLine::UpdateAverageDir`): the mean centre
+    # of the keyframes bound to each line, from one (K, M) scatter
+    L = ms.ln_valid.shape[0]
+    kf_centers = -torch.einsum("kji,kj->ki", ms.kf_T[:, :3, :3],
+                               ms.kf_T[:, :3, 3])                    # (K, 3)
+    lid = ms.kf_ln_idx.clamp(0, L - 1).reshape(-1).long()
+    has = (ms.kf_ln_idx >= 0) & ms.kf_valid[:, None]                 # (K, M)
+    cnt = torch.zeros(L, device=A.device).index_add_(
+        0, lid, has.reshape(-1).to(torch.float32))
+    csum = torch.zeros((L, 3), device=A.device).index_add_(
+        0, lid, torch.where(has[..., None], kf_centers[:, None, :],
+                            0.0).reshape(-1, 3))
+    mid3 = 0.5 * (A + B)
+    unit = lambda v: v / torch.linalg.vector_norm(
+        v, dim=-1, keepdim=True).clamp_min(1e-9)
+    avg_dir = unit(mid3 - csum / cnt.clamp_min(1.0)[:, None])
+    now_dir = unit(mid3 - se3.se3_inv(T)[:3, 3])
+    view_cos = torch.sum(avg_dir * now_dir, dim=-1)
+    visible = visible & ((cnt < 1.0) | (view_cos > 0.5))
+
+    d = ub - ua
+    proj_angle = torch.remainder(torch.atan2(d[:, 1], d[:, 0]), torch.pi)
+    proj_len = torch.linalg.vector_norm(d, dim=-1)
+    d_ang = _angle_diff(lfeats.angle[:, None], proj_angle[None, :])
+    # perpendicular distance of the feature midpoint to the projected
+    # infinite line, and along-line overlap (`mutualOverlap`)
+    dirs = d / proj_len.clamp_min(1e-6)[:, None]                    # (L, 2)
+    rel = (0.5 * (lfeats.uv_a + lfeats.uv_b))[:, None, :] - mid[None, :, :]
+    d_perp = (rel[..., 0] * (-dirs[None, :, 1])
+              + rel[..., 1] * dirs[None, :, 0]).abs()
+    d_along = (rel[..., 0] * dirs[None, :, 0]
+               + rel[..., 1] * dirs[None, :, 1]).abs()
+    len_f, len_p = lfeats.length[:, None], proj_len[None, :]
+    overlap = d_along < 0.6 * (len_f + len_p)
+    lr = torch.minimum(len_f, len_p) / torch.maximum(len_f,
+                                                     len_p).clamp_min(1e-6)
+    mask = (visible[None, :] & lfeats.valid[:, None] & (d_ang < angle_tol)
+            & (d_perp < radius) & overlap & (lr >= 0.5))
+    D = hamming.distance_matrix(lfeats.desc, ms.ln_desc)
+    best_idx, best, _ = hamming.masked_best2(D, mask)
+    matched = hamming.dedup_by_target(best_idx, best <= max_dist, best, L)
+    return best_idx, matched, visible
+
+
 def track_local_map(cam, ms: MapState, feats: PointFeatures, T_last,
-                    scale_factors, sigma2_levels, th: float = 1.0,
-                    n_levels: int = 8, scale: float = 1.2, velocity=None,
+                    scale_factors, sigma2_levels, lfeats=None,
+                    th: float = 1.0, n_levels: int = 8, scale: float = 1.2,
+                    line_info: float = 1.0, velocity=None,
                     vel_gamma: float = 0.8, update_stats: bool = False,
                     anchor_kf=None, max_step_t: float = 0.15,
                     max_step_r: float = 0.35):
@@ -137,8 +215,12 @@ def track_local_map(cam, ms: MapState, feats: PointFeatures, T_last,
     `TrackLocalMap`): stage 1 optimizes the windowed motion-model matches and
     the windowless strict-ratio matches as separate hypotheses from the
     constant-velocity prediction and keeps the one with more inliers; stage
-    2 runs the tight local-map search from that pose and the 4 x 10 pose
-    optimization; a jump guard rejects implausible single-frame motion.
+    2 runs the tight local-map search from that pose (plus, with line
+    features `lfeats`, the map-line search) and the 4 x 10 pose optimization
+    with the line endpoint edges weighted `line_info` x the line's
+    triangulation conditioning; a jump guard rejects implausible
+    single-frame motion. A line is an inlier when both its endpoint edges
+    are.
 
     With `update_stats`, returns (result, ms) after updating the map's
     found/visible counters in place (`update_point_stats`)."""
@@ -180,9 +262,23 @@ def track_local_map(cam, ms: MapState, feats: PointFeatures, T_last,
                                            scale_factors, th, False,
                                            n_levels, scale, pt_mask=local)
     xyz2 = ms.pt_xyz[idx2]
+    if lfeats is not None:
+        lidx, lm, ln_visible = _match_lines_against_map(cam, ms, lfeats,
+                                                        T_mid)
+        ends = ms.ln_xyz[lidx]                                     # (M, 2, 3)
+        cond = ms.ln_cond[lidx]
+        lines = (torch.cat([ends[:, 0], ends[:, 1]]),
+                 torch.cat([lfeats.l2d, lfeats.l2d]), torch.cat([lm, lm]),
+                 line_info * torch.cat([cond, cond]))
+    else:
+        lidx = torch.zeros(1, dtype=torch.int64, device=device)
+        lm = torch.zeros(1, dtype=torch.bool, device=device)
+        ln_visible = torch.zeros(ms.ln_valid.shape, dtype=torch.bool,
+                                 device=device)
+        lines = no_lines
     res2 = pose_opt.pose_optimize(
         cam, T_mid, pose_opt.PoseObs(xyz2, feats.uv_un, sigma2_kp, m2,
-                                     *no_lines),
+                                     *lines),
         rounds=4, iters_per_round=10)
 
     # catastrophic-jump guard, relative to the mean depth of the matches
@@ -201,7 +297,11 @@ def track_local_map(cam, ms: MapState, feats: PointFeatures, T_last,
     inlier = res2.pt_inlier & m2 & jump_ok
     matched_pt = torch.where(inlier, idx2.to(torch.int32), -1)
     n_inl = inlier.sum(dtype=torch.int32)
-    n_ln_inl = torch.zeros((), dtype=torch.int32, device=device)
+    M = lm.shape[0]
+    ln_in = lm & res2.ln_inlier[:M] & res2.ln_inlier[M:] & jump_ok \
+        if lfeats is not None else torch.zeros_like(lm)
+    matched_ln = torch.where(ln_in, lidx.to(torch.int32), -1)
+    n_ln_inl = ln_in.sum(dtype=torch.int32)
     n_matched = (matched_pt >= 0).sum(dtype=torch.int32)
     # reference-keyframe points with >= 3 observations
     k_last = (ms.n_kf - 1).clamp_min(0)
@@ -219,11 +319,10 @@ def track_local_map(cam, ms: MapState, feats: PointFeatures, T_last,
         n_inliers=n_inl,
         n_visible=visible.sum(dtype=torch.int32),
         visible_pts=visible,
-        matched_ln=torch.full((1,), -1, dtype=torch.int32, device=device),
-        ln_inlier=torch.zeros((1,), dtype=torch.bool, device=device),
+        matched_ln=matched_ln,
+        ln_inlier=ln_in,
         n_ln_inliers=n_ln_inl,
-        visible_lns=torch.zeros(ms.ln_valid.shape, dtype=torch.bool,
-                                device=device),
+        visible_lns=ln_visible,
         scalars=torch.stack([n_inl, n_ln_inl, n_matched, nref3,
                              ms.n_pt, ms.n_ln]),
         velocity=new_velocity,

@@ -40,6 +40,29 @@ def masked_best2(dist, mask):
     return best_idx, best, second
 
 
+def mutual_best(dist, mask):
+    """`masked_best2` plus the mutual-nearest-neighbour check
+    (`LSDmatcher::FrameBFMatch`): (match_idx (N,), best (N,), second (N,),
+    mutual (N,) bool), mutual where the query is also its target's best
+    (first index among equal minima) under the same mask."""
+    best_idx, best, second = masked_best2(dist, mask)
+    rev_idx = torch.argmin(torch.where(mask, dist, INVALID), dim=0)   # (M,)
+    mutual = rev_idx[best_idx] == torch.arange(dist.shape[0],
+                                               device=dist.device)
+    return best_idx, best, second, mutual
+
+
+def vector_mad(x, valid, scale: float = 1.4826):
+    """Scaled median absolute deviation of x over the `valid` entries (the
+    reference's `vector_mad`), 0 when fewer than 2 are valid. Medians of an
+    even count average the two middle values, as `jnp.nanmedian` does
+    (`torch.nanmedian` would take the lower one)."""
+    xf = torch.where(valid, x.to(torch.float32), torch.nan)
+    med = torch.nanquantile(xf, 0.5)
+    mad = torch.nanquantile((xf - med).abs(), 0.5)
+    return torch.where(valid.sum() >= 2, scale * torch.nan_to_num(mad), 0.0)
+
+
 def dedup_by_target(idx, matched, best, n_targets: int):
     """Make a per-query match set injective over targets: when several
     queries matched the same target, keep the one with the smallest distance

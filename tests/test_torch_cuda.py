@@ -97,16 +97,20 @@ def test_kernel_matches_plain_at_match_frames_shape():
 
 
 @pytest.mark.cuda
-def test_tracking_and_keyframe_chain_never_wait_for_the_device():
+@pytest.mark.parametrize("use_lines", [False, True])
+def test_tracking_and_keyframe_chain_never_wait_for_the_device(use_lines):
     """The System's tracking step and keyframe chain, at the smoke run's
-    configuration, under torch's sync debug mode: any op that waits for the
-    device raises. Runs until the first keyframe of the chain."""
+    configuration with lines off and on (line detection too), under
+    torch's sync debug mode: any op that waits for the device raises. Runs
+    until the first keyframe of the chain."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    import dataclasses
     from chip_smoke import render_system_sequence, system_config
     from plslam_tpu_torch.models.system import System
 
-    slam = System(system_config(), device=torch.device("cuda", 0))
+    slam = System(dataclasses.replace(system_config(), use_lines=use_lines),
+                  device=torch.device("cuda", 0))
 
     def no_sync(fn):
         def wrapper(*args, **kwargs):
@@ -119,9 +123,11 @@ def test_tracking_and_keyframe_chain_never_wait_for_the_device():
 
     slam._track_update = no_sync(slam._track_update)
     slam._process_kf = no_sync(slam._process_kf)
+    slam._detect_lines = no_sync(slam._detect_lines)
     _, frames = render_system_sequence()
     for i, img in enumerate(frames):
         slam.track_monocular(img, i / 30.0)
         if slam.n_kf_host > 2:
             break
     assert slam.state == "OK" and slam.n_kf_host == 3
+    assert bool(slam.ms.kf_ln_valid[:3].any()) == use_lines

@@ -1,20 +1,27 @@
 """Parity of the PyTorch port's keyframe chain against plslam_tpu, on maps
 the JAX `System` built: the sequence is the system slice's
 (`make_scene(seed=1)`, orbit) at 640x480 with 512 features, 3 levels, 16
-keyframes x 4096 points and a 5 x 1024 BA window; the JAX `System` runs
-until its second keyframe chain, whose input map and output are recorded.
+keyframes x 4096 points, 256 line slots and a 5 x 1024 BA window, lines on;
+the JAX `System` runs until its second keyframe chain, whose input map and
+output are recorded.
 
 Tolerances: integer outputs exact (`covis_rows`, `observers_of_points`,
 `project_and_bind` and `search_in_neighbors` bindings, duplicate fusion,
 row dedup, culls); `create_new_points` exact in its bindings and counts,
 points within 5e-4 relative (the float32 DLT of keyframe pairs some ten
 baselines deep carries ~1e-4 in both packages, see test_torch_geometry);
-`process_keyframe`: every binding of the JAX package's result is the
-port's, and the port's extra bindings, each one a write the JAX package's
+`process_keyframe`: every point and line binding of the JAX package's
+result is the port's, and the port's extra point bindings, each one a write the JAX package's
 `.at[].set(where(a, new, old))` scatters lose (pinned below, ROADMAP
 Queue 3), are at most 3% of the bound slots, so >= 97% of them agree;
-created points within 1%, poses within 1e-3."""
+created points within 1%, created lines equal, poses within 1e-3. The
+line functions' own parity is in tests/test_torch_lines.py; here the
+reference's duplicate-index writes on the line path are pinned on tiny
+maps (ROADMAP Queue 3)."""
+from functools import partial
+
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
@@ -27,11 +34,11 @@ from plslam_tpu.ops.extract import PointFeatures as JFeats
 from plslam_tpu_torch.geometry import camera as tcam
 from plslam_tpu_torch.mapstate import checkpoint as tckpt, state as tstate
 from plslam_tpu_torch.models import mapping as tmap
-from plslam_tpu_torch.ops import extract as text
+from plslam_tpu_torch.ops import extract as text, lines as tlines
 
 CFG = dict(fx=500.0, fy=500.0, cx=320.0, cy=240.0, n_features=512,
            n_levels=3, max_kf=16, max_pt=4096, ba_window=5, ba_points=1024,
-           use_lines=False, use_loop_closing=False, grow_map=False)
+           use_lines=True, use_loop_closing=False, grow_map=False)
 TCAM = tcam.Camera.create(500.0, 500.0, 320.0, 240.0)
 
 
@@ -65,7 +72,9 @@ def run():
                     kp_depth, do_kf_cull=do_kf_cull)
         calls.append((before, dict(
             feats={k: np.array(getattr(feats, k)) for k in feats._fields},
+            lfeats={k: np.array(getattr(lfeats, k)) for k in lfeats._fields},
             T=np.array(T), matched_pt=np.array(matched_pt),
+            matched_ln=np.array(matched_ln),
             frame_id=int(frame_id), do_kf_cull=bool(do_kf_cull)),
             _np_map(out)))
         return out
@@ -79,12 +88,16 @@ def run():
     return slam, calls
 
 
+def _lines(args):
+    return tlines.LineFeatures(**{k: _t(v) for k, v in args["lfeats"].items()})
+
+
 def _process_port(before, args, sf, s2, tri_covis=True):
     ms = _port(before)
     feats = text.PointFeatures(**{k: _t(v) for k, v in args["feats"].items()})
     tmap.process_keyframe(
-        TCAM, ms, feats, None, _t(args["T"]), _t(args["matched_pt"]), None,
-        args["frame_id"], None, s2, sf, window=5, p_ba=1024, l_ba=256,
+        TCAM, ms, feats, _lines(args), _t(args["T"]), _t(args["matched_pt"]),
+        _t(args["matched_ln"]), args["frame_id"], None, s2, sf, window=5, p_ba=1024, l_ba=256,
         max_depth=40.0, do_kf_cull=args["do_kf_cull"], use_depth=False,
         tri_covis=tri_covis, tri_covis_k=3, sin_covis=True, sin_reverse_n=2)
     return ms
@@ -114,6 +127,13 @@ def test_process_keyframe_matches_jax(run, call):
     assert extra <= 0.03 * bound.sum() and bound.sum() > 300
     assert abs(n_new_t - n_new_j) <= 0.01 * n_new_j and n_new_j > 20
     assert int(ms.n_kf) == int(after["n_kf"]) == call + 3
+    # lines: every JAX binding, the same lines created
+    ln_t, ln_j = ms.kf_ln_idx.numpy(), after["kf_ln_idx"]
+    np.testing.assert_array_equal(ln_t[ln_j >= 0], ln_j[ln_j >= 0])
+    assert int(ms.n_ln) == int(after["n_ln"])
+    np.testing.assert_array_equal(ms.ln_valid.numpy(), after["ln_valid"])
+    print(f"call {call}: {(ln_j >= 0).sum()} line bindings, "
+          f"{int(after['n_ln'])} lines")
     np.testing.assert_array_equal(ms.kf_valid.numpy(), after["kf_valid"])
     np.testing.assert_allclose(ms.kf_T.numpy(), after["kf_T"], atol=1e-3)
     assert abs(int(ms.pt_valid.sum()) - int(after["pt_valid"].sum())) \
@@ -136,10 +156,18 @@ def test_process_keyframe_masks_equal_skipping(run):
     k_new = int(before["n_kf"])
     tmap.insert_keyframe(TCAM, ms, text.PointFeatures(**{
         k: _t(v) for k, v in args["feats"].items()}), _t(args["T"]),
-        _t(args["matched_pt"]), args["frame_id"], sf)
+        _t(args["matched_pt"]), args["frame_id"], sf, lfeats=_lines(args),
+        matched_ln=_t(args["matched_ln"]))
     for back in (8, 4, 2, 1):
         if k_new >= back:
             tmap.create_new_points(TCAM, ms, k_new, k_new - back, s2, sf)
+    for back in (1, 2, 3):
+        if k_new >= back + 1:
+            tmap.create_new_lines(TCAM, ms, k_new, k_new - back,
+                                  k_third=k_new - back - 1)
+        elif k_new >= back:
+            tmap.create_new_lines(TCAM, ms, k_new, k_new - back)
+    tmap.fuse_duplicate_lines(ms)
     tmap.fuse_duplicate_points(ms)
     tmap.search_in_neighbors(TCAM, ms, k_new, covis_targets=True)
     tmap.dedup_kf_point_rows(TCAM, ms)
@@ -449,3 +477,224 @@ def test_create_new_points_keeps_colliding_bindings():
     np.testing.assert_array_equal(np.asarray(ms_j.kf_pt_idx)[1], [0, -1, -1])
     assert ms_t.kf_pt_idx[0, 0] == 0                   # the port binds it
     assert np.asarray(ms_j.kf_pt_idx)[0, 0] == -1      # the reference lost it
+
+
+# --- the reference's duplicate-index writes on the line path (Queue 3) ---
+
+def _line_pair(A, B, desc0, desc1, max_ln=16, max_pt=8):
+    """A map of two keyframes 0.3 m apart observing the 3-D segments
+    (A, B) (n, 3) each, exactly projected, one per line slot, unbound."""
+    from plslam_tpu.geometry import se3 as jse3
+    n = A.shape[0]
+    arrays = _np_map(jstate.allocate(jstate.MapConfig(
+        max_kf=2, max_pt=max_pt, max_ln=max_ln, n_kp=4, n_lf=n,
+        n_levels=3)))
+    T1 = np.asarray(jse3.se3_exp(jnp.asarray([0, 0, 0, -0.3, 0, 0.0],
+                                             jnp.float32)))
+    for k, T in enumerate((np.eye(4, dtype=np.float32), T1)):
+        uv = [(X @ T[:3, :3].T + T[:3, 3]) for X in (A, B)]
+        uv = [Xc[:, :2] / Xc[:, 2:] * 500.0 + [320.0, 240.0] for Xc in uv]
+        arrays["kf_T"][k] = T
+        arrays["kf_ln_uv"][k] = np.stack(uv, 1)
+        l = np.cross(np.c_[uv[0], np.ones(n)], np.c_[uv[1], np.ones(n)])
+        arrays["kf_ln_l2d"][k] = l / np.linalg.norm(l[:, :2], axis=-1,
+                                                    keepdims=True)
+    arrays["kf_ln_desc"][0], arrays["kf_ln_desc"][1] = desc0, desc1
+    arrays["kf_ln_valid"][:] = True
+    arrays["kf_valid"][:] = True
+    arrays["n_kf"] = np.int32(2)
+    return arrays
+
+
+def _segments(n, seed=1, length=1.0):
+    rng = np.random.default_rng(seed)
+    A = np.stack([rng.uniform(-1.5, 1.5, n), rng.uniform(-1, 1, n),
+                  rng.uniform(3, 4, n)], -1)
+    d = rng.normal(0, 1, (n, 3)) * [1, 1, 0.2]
+    B = A + length * d / np.linalg.norm(d, axis=-1, keepdims=True)
+    return A.astype(np.float32), B.astype(np.float32)
+
+
+def _create_lines_both(arrays):
+    from plslam_tpu.geometry import camera as jcam
+    jc = jcam.Camera.create(500.0, 500.0, 320.0, 240.0)
+    ms_j = jax.jit(partial(jmap.create_new_lines, jc))(
+        _jax_map(arrays), jnp.int32(1), jnp.int32(0))
+    return ms_j, tmap.create_new_lines(TCAM, _port(arrays), 1, 0)
+
+
+def test_create_new_lines_at_capacity_keeps_the_last_slot():
+    """Fault in the reference, pinned: 6 lines triangulate but 3 slots are
+    left; `append_slots` sends the dropped lanes to slot L-1 and the JAX
+    package's `.at[slots].set(where(a, new, old))` lets them write slot
+    L-1's stale values after the line created there, which stays invalid
+    at the origin. The port writes the accepted lanes only; every other
+    field and slot agrees."""
+    A, B = _segments(6)
+    desc = np.random.default_rng(2).integers(0, 2, (6, 256)).astype(np.uint8)
+    arrays = _line_pair(A, B, desc, desc, max_ln=8)
+    arrays["n_ln"] = np.int32(5)
+    ms_j, ms_t = _create_lines_both(arrays)
+    assert int(ms_t.n_ln) == int(ms_j.n_ln) == 8
+    np.testing.assert_array_equal(ms_t.kf_ln_idx.numpy()[:, :4],
+                                  [[5, 6, 7, -1]] * 2)
+    assert ms_t.ln_valid[5:].all()
+    assert not bool(np.asarray(ms_j.ln_valid)[7])        # the reference's loss
+    np.testing.assert_allclose(ms_t.ln_xyz[7].numpy(), np.stack([A[2], B[2]]),
+                               atol=1e-3)
+    for name in tstate.FIELDS:
+        a, b = getattr(ms_t, name).numpy(), np.asarray(getattr(ms_j, name))
+        if a.ndim and a.shape[0] == 8 and name.startswith("ln_"):
+            a, b = a[:7], b[:7]
+        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-5, err_msg=name)
+
+
+def test_create_new_lines_keeps_colliding_bindings():
+    """Fault in the reference, pinned: the new line's binding in the
+    reference keyframe, `.at[idx2].set(where(a, lid, old))`, is written
+    back to -1 by a later lane that was not accepted but whose best match
+    is the same segment (XLA's CPU scatter keeps the last write). Inputs:
+    segment 2 of keyframe 1 is segment 0 shifted 2 cm, with segment 0's
+    descriptor 60 bits away (past the Hamming bound 50), so lanes 0 and 2
+    both best-match segment 0 of keyframe 0 and lane 0 alone is accepted."""
+    A, B = _segments(3, seed=4)
+    A[2], B[2] = A[0] + 0.02, B[0] + 0.02
+    base = np.random.default_rng(0).integers(0, 2, (3, 256)).astype(np.uint8)
+    desc1 = base.copy()
+    desc1[1] = 1 - base[1]                   # lane 1 matches nothing
+    desc1[2] = base[0]
+    desc1[2, :60] = 1 - desc1[2, :60]
+    arrays = _line_pair(A, B, base, desc1)
+    arrays["kf_ln_valid"][0, 2] = False      # keyframe 0's segment 2: absent
+    ms_j, ms_t = _create_lines_both(arrays)
+    assert int(ms_t.n_ln) == int(ms_j.n_ln) == 1
+    np.testing.assert_array_equal(ms_t.kf_ln_idx[1].numpy(), [0, -1, -1])
+    np.testing.assert_array_equal(np.asarray(ms_j.kf_ln_idx)[1], [0, -1, -1])
+    assert ms_t.kf_ln_idx[0, 0] == 0                    # the port binds it
+    assert np.asarray(ms_j.kf_ln_idx)[0, 0] == -1       # the reference lost it
+
+
+@pytest.mark.parametrize("all_valid", [True, False])
+def test_create_new_lines_scene_depth_is_nan_below_capacity(all_valid):
+    """Kept as in the reference (Queue 3): the extent gate compares against
+    the median distance of the map's points over all slots, NaN where a slot
+    is invalid, and a NaN median becomes 1.0. So with the points 100 m away
+    the 4 m segments pass only when every point slot is valid; with one
+    invalid slot the scene depth is 1.0 and 4 m > 3 x 1.0 rejects them."""
+    A, B = _segments(4, seed=6, length=4.0)
+    desc = np.random.default_rng(3).integers(0, 2, (4, 256)).astype(np.uint8)
+    arrays = _line_pair(A, B, desc, desc)
+    arrays["pt_xyz"][:] = [0.0, 0.0, 100.0]
+    arrays["pt_valid"][:] = True
+    arrays["pt_valid"][-1] = all_valid
+    ms_j, ms_t = _create_lines_both(arrays)
+    assert int(ms_t.n_ln) == int(ms_j.n_ln) == (4 if all_valid else 0)
+    np.testing.assert_array_equal(ms_t.kf_ln_idx.numpy(),
+                                  np.asarray(ms_j.kf_ln_idx))
+
+
+def test_insert_keyframe_keeps_line_zero_descriptor_update():
+    """Fault in the reference, pinned: `insert_keyframe` writes the bound
+    lines' descriptors with `.at[lid].set(where(has, desc, old))`, and the
+    unbound lanes, clipped to line 0, write line 0's old descriptor after
+    the lane that bound it. The port writes the bound lanes only. Every
+    other field agrees."""
+    from plslam_tpu.ops.lines import LineFeatures as JLines
+    A, B = _segments(4)
+    rng = np.random.default_rng(7)
+    old = rng.integers(0, 2, (4, 256)).astype(np.uint8)
+    arrays = _line_pair(A, B, old, old)
+    arrays["ln_desc"][:4] = old
+    arrays["ln_valid"][:4] = True
+    arrays["n_ln"] = np.int32(4)
+    arrays["n_kf"] = np.int32(1)
+    new = rng.integers(0, 2, (4, 256)).astype(np.uint8)
+    uv = arrays["kf_ln_uv"][1]
+    lf = dict(uv_a=uv[:, 0], uv_b=uv[:, 1], l2d=arrays["kf_ln_l2d"][1],
+              angle=np.zeros(4, np.float32), length=np.full(4, 50, np.float32),
+              response=np.zeros(4, np.float32), desc=new,
+              valid=np.ones(4, bool))
+    matched_ln = np.array([0, -1, 2, -1], np.int32)
+    feats = {k: np.zeros(s, dt) for k, s, dt in (
+        ("uv", (4, 2), np.float32), ("uv_un", (4, 2), np.float32),
+        ("response", 4, np.float32), ("octave", 4, np.int32),
+        ("angle", 4, np.float32), ("desc", (4, 256), np.uint8),
+        ("valid", 4, bool))}
+    T = arrays["kf_T"][1]
+    ms_j = jmap.insert_keyframe(
+        None, _jax_map(arrays), JFeats(**{k: jnp.asarray(v) for k, v in
+                                          feats.items()}),
+        jnp.asarray(T), jnp.full((4,), -1, jnp.int32), jnp.int32(1),
+        jnp.ones(3), lfeats=JLines(**{k: jnp.asarray(v) for k, v in
+                                      lf.items()}),
+        matched_ln=jnp.asarray(matched_ln))
+    ms_t = tmap.insert_keyframe(
+        TCAM, _port(arrays), text.PointFeatures(**{k: _t(v) for k, v in
+                                                   feats.items()}),
+        _t(T), torch.full((4,), -1, dtype=torch.int32), 1, _t(np.ones(3)),
+        lfeats=tlines.LineFeatures(**{k: _t(v) for k, v in lf.items()}),
+        matched_ln=_t(matched_ln))
+    np.testing.assert_array_equal(ms_t.ln_desc.numpy()[[0, 2]], new[[0, 2]])
+    np.testing.assert_array_equal(np.asarray(ms_j.ln_desc)[0], old[0])
+    np.testing.assert_array_equal(np.asarray(ms_j.ln_desc)[2], new[2])
+    for name in tstate.FIELDS:
+        a, b = getattr(ms_t, name).numpy(), np.asarray(getattr(ms_j, name))
+        if name == "ln_desc":
+            a, b = a[1:], b[1:]
+        np.testing.assert_array_equal(a, b, name)
+
+
+def test_ba_select_keeps_line_slot_zero_observations():
+    """Fault in the reference, pinned (the line form of
+    tests/test_torch_local_ba.py's slot-0 case): `ba_select` scatters the
+    observed lines into the BA grid with `.at[slot].set(where(has, l2d,
+    old))`, and every lane without a BA slot writes slot 0's placeholder
+    [1, 0, -1e9] after the real observer of BA slot 0 (the newest observed
+    line). The port keeps the observation; the rest of the problem
+    agrees."""
+    A, B = _segments(6)
+    desc = np.zeros((6, 256), np.uint8)
+    arrays = _line_pair(A, B, desc, desc)
+    arrays["ln_valid"][:6] = True
+    arrays["n_ln"] = np.int32(6)
+    arrays["kf_ln_idx"][0] = [5, -1, 3, -1, 1, -1]
+    arrays["kf_ln_idx"][1] = [4, 5, -1, 2, -1, 0]
+    s2 = np.array([1.0, 1.44, 2.0736], np.float32)
+    sel_j = jmap.ba_select(_jax_map(arrays), jnp.asarray(s2), window=2,
+                           p_ba=8, l_ba=8)
+    sel_t = tmap.ba_select(_port(arrays), _t(s2), window=2, p_ba=8, l_ba=8)
+    l2d_t = sel_t.prob.ln_obs_l2d.numpy()
+    l2d_j = np.asarray(sel_j.prob.ln_obs_l2d)
+    # line 5 is BA slot 0: keyframe 0 sees it in lane 0 (unbound lanes
+    # follow), keyframe 1 in lane 1 (an unbound lane follows)
+    for k, lane in ((0, 0), (1, 1)):
+        np.testing.assert_array_equal(l2d_t[k, 0], arrays["kf_ln_l2d"][k, lane])
+        np.testing.assert_array_equal(l2d_j[k, 0], [1.0, 0.0, -1e9])
+    np.testing.assert_array_equal(l2d_t[:, 1:], l2d_j[:, 1:])
+    np.testing.assert_array_equal(sel_t.prob.ln_obs_mask.numpy(),
+                                  np.asarray(sel_j.prob.ln_obs_mask))
+    np.testing.assert_array_equal(sel_t.lsel.numpy(), np.asarray(sel_j.lsel))
+
+
+def test_fuse_duplicate_lines_below_n_recent_matches_jax():
+    """With fewer line slots (16) than `n_recent` (256) the recent ids
+    repeat the last slot; every repeat writes what the first wrote, so the
+    reference and the port agree exactly."""
+    A, B = _segments(8)
+    desc = np.random.default_rng(8).integers(0, 2, (8, 256)).astype(np.uint8)
+    arrays = _line_pair(A, B, desc, desc)
+    arrays["ln_xyz"][:8] = np.stack([A, B], 1)
+    arrays["ln_xyz"][8:16] = np.stack([A, B], 1) + 0.01
+    arrays["ln_desc"][:8] = arrays["ln_desc"][8:16] = desc
+    arrays["ln_valid"][:16] = True
+    arrays["ln_cond"][:8] = 0.5
+    arrays["n_ln"] = np.int32(16)
+    arrays["kf_ln_idx"][0] = np.arange(8)
+    arrays["kf_ln_idx"][1] = np.arange(8, 16)
+    ms_j = jax.jit(jmap.fuse_duplicate_lines)(_jax_map(arrays))
+    ms_t = tmap.fuse_duplicate_lines(_port(arrays))
+    for name in ("kf_ln_idx", "ln_valid", "ln_n_obs", "ln_cond"):
+        np.testing.assert_array_equal(getattr(ms_t, name).numpy(),
+                                      np.asarray(getattr(ms_j, name)), name)
+    np.testing.assert_array_equal(ms_t.kf_ln_idx[1].numpy(), np.arange(8))
+    assert not ms_t.ln_valid[8:].any()

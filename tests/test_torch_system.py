@@ -1,20 +1,22 @@
 """The PyTorch port's `System.track_monocular` against the JAX package's
-`System`, with lines and loop closing off, over the same 28 rendered
+`System`, with lines on and loop closing off, over the same 28 rendered
 640x480 frames of the system sequence (`make_scene(seed=1)`, orbit) at
 tests/test_e2e.py's small widths: 512 features, 3 levels, 16 keyframes x
-4096 points, a 5 x 1024 BA window.
+4096 points, a 5 x 1024 BA window, 256 line slots.
 
 Bounds: the same initialization frame; keyframe counts within 1; map
-points within 10%; the port's ATE after Sim3 alignment below 5% of the
-span (the JAX package's gate); the two Sim3-aligned trajectories within 1%
-of the span of each other. Plus the public surface: `SLAMConfig` and
-`from_yaml` as the JAX package's, the trajectory writers, and
-`NotImplementedError` for every option not ported yet."""
+points within 10%; map lines created within 2; the port's ATE after Sim3
+alignment below 5% of the span (the JAX package's gate); the two
+Sim3-aligned trajectories within 1% of the span of each other. Plus the
+public surface: `SLAMConfig` and `from_yaml` as the JAX package's, the
+trajectory writers, a line mask read from `mask_path` as the JAX package
+reads it, and `NotImplementedError` for every option not ported yet."""
 import dataclasses
 from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 from plslam_tpu.models import system as jsys
 from plslam_tpu_torch.datasets import synthetic
@@ -23,7 +25,7 @@ from plslam_tpu_torch.models import system as tsys
 N_FRAMES = 28
 SMALL = dict(fx=500.0, fy=500.0, cx=320.0, cy=240.0, n_features=512,
              n_levels=3, max_kf=16, max_pt=4096, ba_window=5, ba_points=1024,
-             use_lines=False, use_loop_closing=False, grow_map=False)
+             use_lines=True, use_loop_closing=False, grow_map=False)
 ROOT = Path(__file__).resolve().parents[1]
 
 
@@ -59,6 +61,7 @@ def test_system_matches_jax_over_rendered_frames(runs):
     assert t.n_keyframes() >= 3
     n_j = j.n_map_points()
     assert abs(t.n_map_points() - n_j) <= 0.1 * n_j
+    assert abs(int(t.ms.n_ln) - int(j.ms.n_ln)) <= 2
     assert not any(s.get("lost") for s in t.stats)
     idx = [i for i in range(N_FRAMES) if i / 30.0 in traj_t]
     assert idx == [i for i in range(N_FRAMES) if i / 30.0 in traj_j]
@@ -71,7 +74,8 @@ def test_system_matches_jax_over_rendered_frames(runs):
     gap = synthetic.ate_rmse(est_t, est_j)
     print(f"ATE port {ate_t:.4f} jax {ate_j:.4f} span {span:.3f}; "
           f"port vs jax {gap:.5f}; keyframes {t.n_keyframes()} / "
-          f"{j.n_keyframes()}; points {t.n_map_points()} / {n_j}")
+          f"{j.n_keyframes()}; points {t.n_map_points()} / {n_j}; lines "
+          f"{int(t.ms.n_ln)} / {int(j.ms.n_ln)}")
     assert ate_t < 0.05 * span
     assert gap < 0.01 * span
 
@@ -112,8 +116,46 @@ def test_slam_config_is_the_jax_one():
         == dataclasses.asdict(jsys.SLAMConfig.from_yaml(path))
 
 
+def test_system_with_lines_tracks(runs):
+    """With lines on, the port's System detects segments on every frame,
+    triangulates map lines at initialization and in the chain, and reports
+    line inliers per tracked frame."""
+    _, _, (t, init_t, _) = runs
+    assert t.line_detector is not None and t.line_detector.n_out == 256
+    assert int(t.ms.n_ln) >= 1
+    assert int(t.ms.kf_ln_valid[:t.n_keyframes()].sum(1).min()) >= 10
+    tracked = [s for s in t.stats if not s.get("lost")]
+    assert tracked and all("line_inliers" in s for s in tracked)
+
+
+def test_mask_path_reaches_detect_lines(tmp_path):
+    """A mask image at `mask_path` is read as the JAX package reads it
+    (pixels > 127) and suppresses the line blocks it covers."""
+    import cv2
+    from plslam_tpu_torch.ops import lines as tl
+    mask = np.full((480, 640), 255, np.uint8)
+    mask[:, :320] = 0
+    path = str(tmp_path / "mask.png")
+    cv2.imwrite(path, mask)
+    cfg = {**SMALL, "mask_path": path}
+    t = tsys.System(tsys.SLAMConfig(**cfg), device="cpu")
+    j = jsys.System(jsys.SLAMConfig(**cfg))
+    np.testing.assert_array_equal(t._line_mask.numpy(),
+                                  np.asarray(j._line_mask))
+    scene = synthetic.make_scene(seed=1)
+    img = synthetic.render(scene, synthetic.trajectory(60, "orbit")[0])
+    _, lf = t._extract(img)
+    want = tl.detect_lines(torch.from_numpy(img.astype(np.uint8)).float(),
+                           n_out=256, mask=t._line_mask)
+    np.testing.assert_array_equal(lf.valid.numpy(), want.valid.numpy())
+    np.testing.assert_allclose(lf.uv_a.numpy(), want.uv_a.numpy(), atol=1e-4)
+    v = lf.valid.numpy()
+    assert v.sum() >= 3
+    assert (lf.uv_a.numpy()[v, 0] > 312).all()
+    assert (lf.uv_b.numpy()[v, 0] > 312).all()
+
+
 @pytest.mark.parametrize("option,value,item", [
-    ("use_lines", True, 11), ("mask_path", "masks/x.png", 11),
     ("use_loop_closing", True, 13), ("young_gba_until_kf", 4, 13),
     ("periodic_gba_every_kf", 8, 13), ("sensor", "rgbd", 14),
     ("async_pipeline", True, 15), ("grow_map", True, 16),

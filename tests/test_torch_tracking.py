@@ -326,3 +326,26 @@ def test_create_points_at_capacity_keeps_the_last_slot():
         if a.ndim and a.shape[0] == p:
             a, b = a[:p - 1], b[:p - 1]
         np.testing.assert_allclose(a, b, atol=1e-5, err_msg=name)
+
+
+def test_track_local_map_with_lines_and_no_map_lines(jax_run):
+    """Line features against a map without lines: no line is visible or
+    matched, and the point result is the points-only one, bit for bit
+    (the masked line edges add exact zeros). The line path against the JAX
+    package is in tests/test_torch_lines.py."""
+    from plslam_tpu_torch.ops import lines as tl
+    feats_j, ms0_j, _ = jax_run
+    sf, s2 = text.scale_factors(TCFG)
+    f = _feats_to_torch(feats_j[1])
+    img = np.random.default_rng(0).uniform(0, 255, (H, W)).astype(np.float32)
+    lf = tl.detect_lines(_t(img), n_out=32)
+    kw = dict(n_levels=LEVELS, scale=1.2, velocity=torch.eye(4))
+    r0 = ttrk.track_local_map(TCAM, _port_map(ms0_j), f, torch.eye(4), sf, s2,
+                              **kw)
+    r1 = ttrk.track_local_map(TCAM, _port_map(ms0_j), f, torch.eye(4), sf, s2,
+                              lfeats=lf, **kw)
+    np.testing.assert_array_equal(r1.T.numpy(), r0.T.numpy())
+    np.testing.assert_array_equal(r1.matched_pt.numpy(), r0.matched_pt.numpy())
+    assert r1.matched_ln.shape == (32,) and (r1.matched_ln == -1).all()
+    assert int(r1.n_ln_inliers) == 0 and not r1.visible_lns.any()
+    assert r0.matched_ln.shape == (1,) and int(r0.n_ln_inliers) == 0
