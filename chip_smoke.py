@@ -21,11 +21,12 @@
    and that every search of the step went through K1 (3 per frame);
 4. the system phase: `System.track_monocular` over the 60-frame system
    sequence (`make_scene(seed=1)`, orbit) at the `SLAMConfig` defaults with
-   the renderer's camera and lines, loop closing and map growth off. It
+   the renderer's camera and lines off (loop closing and map growth on). It
    checks initialization within the first 10 frames, no LOST frame after
    it, >= 3 keyframes, > 150 map points, an ATE after Sim3 alignment below
    5% of the span, and exactly 3 K1 launches per tracked frame plus one
-   per initialization match; it prints per-stage host times (each stage
+   per initialization match (plus 2 per relocalization attempt and per
+   Sim3 stage, in every phase); it prints per-stage host times (each stage
    synchronized), frames, counts and peak device memory. It records K1's
    arguments on the initialization frame (`match_frames`) and on the first
    frame tracked after the chain's first keyframe (the wide-window, the
@@ -42,7 +43,24 @@
    off: no LOST frame after initialization, a valid map line and a tracked
    frame with a line inlier (lines on), both ATEs printed beside the CPU
    runs of `scripts/lines_yardstick.py`; (c) `detect_lines` on the card
-   against the port on the CPU for three frames (`check_detect_on_card`).
+   against the port on the CPU for three frames (`check_detect_on_card`);
+6. the relocalization phase: tests/test_reloc_e2e.py's kidnap (30 frames,
+   `make_scene(seed=2)`, orbit) at the `SLAMConfig` defaults with that
+   test's keyframe cadence: the last pose thrown far off after 20 frames,
+   then relocalization; that test's bars (> 5 keyframes before the kidnap,
+   a relocalization, OK at the end, ATE over frames >= 22 below 0.1 m),
+   the host ms per attempt and K1's launch count;
+7. the loop phase: tests/test_loop_closure_e2e.py's box circuit (110
+   frames, rendered at fx 500, tracked at fx 512) at that test's widths
+   (a) and at the defaults (b), loop closing and growth on: that test's
+   bars (a long-range closure, a finished global BA, keyframe ATE after the
+   correction and at the end below the ATE before it, the exported
+   trajectory within 1.5 x + 0.05 of it) plus a growth event, host ms of
+   detection, the Sim3 stage, the correction, search-and-fuse, global-BA
+   rounds and the merge, and what the Sim3 stages' gates rejected; it runs
+   under torch's deterministic algorithms. Then K1 on the first
+   relocalization attempt's two calls and the first Sim3 stage's two
+   (forward and reverse pairs), bit for bit and timed as in step 2.
 
 Any failed check exits non-zero. The last line is the device JSON; the line
 before it lists the kernels with their launch counts (every phase) and
@@ -72,6 +90,15 @@ MIN_KEYFRAMES = 3
 MIN_POINTS = 150      # valid map points (tests/test_e2e.py's bar)
 TRACKING_SEARCHES = ("wide-window search", "gates-off ratio search",
                      "local-map search")   # K1's calls per tracked frame
+RELOC_SEARCHES = ("relocalization ratio search (gates off)",
+                  "relocalization widened search (gated)")
+SIM3_SEARCHES = ("Sim3 pairs forward (gates off)",
+                 "Sim3 pairs reverse (gates off)")
+# the stages run_system times on the host clock
+STAGES = ("extract", "lines", "match", "two_view", "init_ba", "track",
+          "keyframe", "create_lines", "local_ba", "young_gba", "reloc",
+          "detect", "sim3", "correct", "search_fuse", "gba_step", "gba_merge",
+          "grow")
 LINES_FRAMES = 40
 # tests/test_lines_help.py's keyframe cadence and small widths
 LINES_HELP = dict(kf_min_interval=3, kf_max_interval=3, kf_ref_ratio=2.0,
@@ -88,6 +115,19 @@ DETECT_FRAMES = (0, 13, 27)
 DETECT_TOL_PX = 0.05      # card vs CPU endpoint gap (check_detect_on_card)
 DETECT_TIE_PX = 0.05      # segments this close to the length floor may flip
 DETECT_BITS = 0.995       # share of equal descriptor bits
+# the relocalization phase: tests/test_reloc_e2e.py's kidnap at the defaults
+RELOC_FRAMES = 30
+RELOC_KIDNAP_AFTER = 20
+RELOC_PINS = dict(kf_max_interval=2, kf_min_interval=1, kf_ref_ratio=2.0)
+KIDNAP_XI = (1.5, -0.8, 2.0, 5.0, 4.0, -6.0)   # the kidnapped last pose
+RELOC_ATE_FROM = 22
+RELOC_ATE_MAX = 0.1
+# the loop phase: tests/test_loop_closure_e2e.py's circuit
+LOOP_FRAMES = 110
+LOOP_PINS = dict(kf_max_interval=3, kf_min_interval=2, desc_pattern="gauss",
+                 tri_covis=False)
+LOOP_SMALL = dict(n_features=512, n_levels=3, max_kf=40, max_pt=8192,
+                  max_ln=256, n_lf=64, ba_window=5, ba_points=1536)
 
 
 def fail(msg: str):
@@ -388,34 +428,36 @@ def render_system_sequence(n_frames=SYSTEM_FRAMES):
 
 def system_config():
     """`SLAMConfig` defaults (TUM fr1 widths: 640x480, 1024 features, 8
-    levels, 48 keyframes x 12288 points, an 8 x 3072 BA window) with the
-    renderer's camera, and lines, loop closing and map growth off."""
+    levels, 48 keyframes x 12288 points, an 8 x 3072 BA window, loop
+    closing and map growth on) with the renderer's camera and lines off."""
     from plslam_tpu_torch.models.system import SLAMConfig
     return SLAMConfig(fx=FX, fy=FX, cx=WIDTH / 2, cy=HEIGHT / 2, k1=0, k2=0,
-                      p1=0, p2=0, k3=0, use_lines=False,
-                      use_loop_closing=False, grow_map=False)
+                      p1=0, p2=0, k3=0, use_lines=False)
 
 
-def run_system(frames, cfg=None, record_calls=True):
+def run_system(frames, cfg=None, record_calls=True, drive=None):
     """`System.track_monocular` over the frames on cuda:0 at `cfg` (default
     `system_config()`). Each stage (extraction, line detection inside it,
     initialization match and two-view solve, tracking, the keyframe chain
-    and the line triangulations and local BAs inside it, and the local BA
-    after initialization) is wrapped to run between two device
-    synchronizations and timed on the host clock; K1's launch count is set
-    to 0 just before the run and read just after. With `record_calls`, K1's
-    arguments are recorded on the initialization frame (its `match_frames`
-    call) and on the first frame tracked after the first keyframe of the
-    chain (its three searches)."""
-    from plslam_tpu_torch.models import mapping, tracking
+    and the line triangulations and local BAs inside it, the local BA after
+    initialization, relocalization, and with loop closing its detection,
+    Sim3 stage, correction, search-and-fuse, global-BA rounds and merge, and
+    growth) is wrapped to run between two device synchronizations and timed
+    on the host clock; K1's launch count is set to 0 just before the run
+    and read just after. With `record_calls`, K1's arguments are recorded on
+    the initialization frame (its `match_frames` call) and on the first
+    frame tracked after the first keyframe of the chain (its three
+    searches); the first relocalization attempt's two calls and the first
+    Sim3 stage's two are recorded always. `drive(slam, step)` runs the
+    frames through `step(i)` (default: in order)."""
+    from plslam_tpu_torch.mapstate import state as mstate
+    from plslam_tpu_torch.models import loop_closing, mapping, tracking
     from plslam_tpu_torch.models.system import System
     from plslam_tpu_torch.ops import gated_match
 
     device = torch.device("cuda", 0)
     slam = System(cfg if cfg is not None else system_config(), device=device)
-    times = {k: [] for k in ("extract", "lines", "match", "two_view",
-                             "init_ba", "track", "keyframe", "create_lines",
-                             "local_ba")}
+    times = {k: [] for k in STAGES}
 
     def timed(fn, name):
         def wrapper(*args, **kwargs):
@@ -427,50 +469,128 @@ def run_system(frames, cfg=None, record_calls=True):
             return out
         return wrapper
 
+    recorder = K1Recorder(gated_match)
+    stage_calls, sim3_log = {}, []
+
+    def recorded(fn, name):
+        """Keeps K1's arguments of the first call of a stage."""
+        def wrapper(*args, **kwargs):
+            if name in stage_calls:
+                return fn(*args, **kwargs)
+            saved = recorder.on, recorder.calls
+            recorder.on, recorder.calls = True, []
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                stage_calls[name] = recorder.calls
+                recorder.on, recorder.calls = saved
+        return wrapper
+
     for attr, name in (("_extract", "extract"), ("_detect_lines", "lines"),
                        ("_match_frames", "match"),
                        ("_init_two_view", "two_view"),
                        ("_track_update", "track"),
-                       ("_process_kf", "keyframe"), ("_local_ba", "init_ba")):
+                       ("_process_kf", "keyframe"), ("_local_ba", "init_ba"),
+                       ("run_global_ba", "young_gba")):
         setattr(slam, attr, timed(getattr(slam, attr), name))
+    slam._relocalize = recorded(timed(slam._relocalize, "reloc"), "reloc")
+    step_gba = timed(slam._step_gba, "gba_step")
+    slam._step_gba = lambda: None if slam._gba is None else step_gba()
+    lc = slam.loop_closer
+    if lc is not None:
+        for attr, name in (("detect", "detect"), ("correct", "correct"),
+                           ("_search_fuse", "search_fuse")):
+            setattr(lc, attr, timed(getattr(lc, attr), name))
+        stage = timed(lc._sim3_stage, "sim3")
+
+        def logged(ms, k, c, *args, **kwargs):
+            out = stage(ms, k, c, *args, **kwargs)
+            n_matches, n_seed, S12, n_inl = out
+            sim3_log.append((k, c, int(n_matches), int(n_seed), int(n_inl),
+                             round(lc.drift_angle(ms, k, c, S12), 3)))
+            return out
+        lc._sim3_stage = recorded(logged, "sim3")
     # inside the chain (the initial map's lines go through slam._create_lines)
-    chain_ba, chain_lines = mapping.run_local_ba, mapping.create_new_lines
-    mapping.run_local_ba = timed(chain_ba, "local_ba")
-    mapping.create_new_lines = timed(chain_lines, "create_lines")
-    recorder = K1Recorder(gated_match)
-    tracking.gated_match = recorder
+    patched = [(mapping, "run_local_ba", "local_ba"),
+               (mapping, "create_new_lines", "create_lines"),
+               (mapping, "gba_merge", "gba_merge"), (mstate, "grow", "grow")]
+    originals = [getattr(m, a) for m, a, _ in patched]
+    for m, a, name in patched:
+        setattr(m, a, timed(getattr(m, a), name))
+    tracking.gated_match = loop_closing.gated_match = recorder
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
-    init, states, real_calls = None, [], []
+    init, states, real_calls, init_call = None, [], [], []
+
+    def step(i):
+        nonlocal init
+        capture = record_calls and not real_calls and slam.n_kf_host > 2
+        recorder.on = record_calls and (init is None or capture)
+        recorder.calls = []
+        slam.track_monocular(frames[i], i / 30.0)
+        recorder.on = False
+        states.append(slam.state)
+        if init is None and slam.state == "OK":
+            init = i
+            if record_calls:
+                init_call.append((f"match_frames, init frame {i}",
+                                  *recorder.calls[-1]))
+        elif capture:
+            if len(recorder.calls) != len(TRACKING_SEARCHES):
+                fail(f"frame {i} made {len(recorder.calls)} K1 calls, "
+                     f"expected {len(TRACKING_SEARCHES)}")
+            real_calls.extend((f"{label}, frame {i}", *call) for label, call
+                              in zip(TRACKING_SEARCHES, recorder.calls))
+
     gated_match.gated_hamming_best2.launches = 0
     try:
-        for i, img in enumerate(frames):
-            capture = record_calls and not real_calls and slam.n_kf_host > 2
-            recorder.on = record_calls and (init is None or capture)
-            recorder.calls = []
-            slam.track_monocular(img, i / 30.0)
-            states.append(slam.state)
-            if init is None and slam.state == "OK":
-                init = i
-                init_call = recorder.calls[-1] if record_calls else None
-            elif capture:
-                real_calls = [(f"{label}, frame {i}", *call) for label, call
-                              in zip(TRACKING_SEARCHES, recorder.calls)]
-                if len(recorder.calls) != len(TRACKING_SEARCHES):
-                    fail(f"frame {i} made {len(recorder.calls)} K1 calls, "
-                         f"expected {len(TRACKING_SEARCHES)}")
+        if drive is None:
+            for i in range(len(frames)):
+                step(i)
+        else:
+            drive(slam, step)
+        slam.flush()
     finally:
-        mapping.run_local_ba, mapping.create_new_lines = chain_ba, chain_lines
-        tracking.gated_match = gated_match
+        for (m, a, _), fn in zip(patched, originals):
+            setattr(m, a, fn)
+        tracking.gated_match = loop_closing.gated_match = gated_match
     launches = gated_match.gated_hamming_best2.launches
-    if init is not None and record_calls:
-        real_calls.append((f"match_frames, init frame {init}", *init_call))
     traj = dict(slam.trajectory)
     idx = [i for i in range(len(frames)) if i / 30.0 in traj]
     return dict(slam=slam, init=init, states=states, times=times,
-                launches=launches, idx=idx, real_calls=real_calls,
+                launches=launches, idx=idx, real_calls=real_calls + init_call,
+                stage_calls=stage_calls, sim3_log=sim3_log,
                 poses=np.stack([traj[i / 30.0] for i in idx]),
                 peak=torch.cuda.max_memory_allocated(device))
+
+
+def expected_launches(times) -> tuple:
+    """(K1 launches a run must make, the formula): 3 per tracked frame, 1
+    per initialization match, 2 per relocalization attempt and 2 per Sim3
+    stage."""
+    n = {k: len(times[k]) for k in ("track", "match", "reloc", "sim3")}
+    return (3 * n["track"] + n["match"] + 2 * n["reloc"] + 2 * n["sim3"],
+            f"3 x {n['track']} tracked frames + {n['match']} init matches "
+            f"+ 2 x {n['reloc']} relocalization attempts + 2 x {n['sim3']} "
+            f"Sim3 stages")
+
+
+def print_stage_times(label, times):
+    pct_ms = lambda x, q: 1e3 * float(np.percentile(x, q))
+    for name in STAGES:
+        x = times[name]
+        if x and name not in ("match", "two_view", "init_ba"):
+            print(f"{label}: {name} ms median {pct_ms(x, 50):.2f} p90 "
+                  f"{pct_ms(x, 90):.2f} over {len(x)} calls")
+
+
+def check_launches(label, out):
+    expected, formula = expected_launches(out["times"])
+    print(f"{label}: K1 launches {out['launches']} (expected {formula} = "
+          f"{expected})")
+    if out["launches"] != expected:
+        fail(f"{label}: K1 launched {out['launches']} times, expected "
+             f"{formula} = {expected}")
 
 
 def check_system(Ts, out, label="system", min_lines=0):
@@ -478,13 +598,7 @@ def check_system(Ts, out, label="system", min_lines=0):
     many valid map lines at the end); returns the ATE and span."""
     from plslam_tpu_torch.datasets import synthetic
     slam, init, times = out["slam"], out["init"], out["times"]
-    pct_ms = lambda x, q: 1e3 * float(np.percentile(x, q)) if x else 0.0
-    for name in ("extract", "lines", "track", "keyframe", "create_lines",
-                 "local_ba"):
-        x = times[name]
-        if x:
-            print(f"{label}: {name} ms median {pct_ms(x, 50):.2f} p90 "
-                  f"{pct_ms(x, 90):.2f} over {len(x)} calls")
+    print_stage_times(label, times)
     if init is not None and times["init_ba"]:
         tv = times["two_view"]
         print(f"{label}: init on frame {init}: "
@@ -495,7 +609,6 @@ def check_system(Ts, out, label="system", min_lines=0):
               f"match and {len(tv)} two-view attempts in all, the first "
               f"two-view {1e3 * tv[0]:.2f} ms")
     n_track = len(times["track"])
-    expected = 3 * n_track + len(times["match"])
     lost = [i for i, s in enumerate(out["states"]) if init is not None
             and i > init and s != "OK"]
     idx = out["idx"]
@@ -510,9 +623,9 @@ def check_system(Ts, out, label="system", min_lines=0):
           f"{int(slam.ms.n_ln)} map lines created, {n_lines} valid, line "
           f"inliers per tracked frame max {max(ln_inl, default=0)} (on "
           f"{sum(1 for n in ln_inl if n > 0)} frames), ATE {ate:.4f} m over a "
-          f"{span:.3f} m span ({100 * ate / max(span, 1e-9):.2f}%), K1 "
-          f"launches {out['launches']} (expected {expected}), peak device "
-          f"memory {out['peak'] / 2**20:.1f} MiB")
+          f"{span:.3f} m span ({100 * ate / max(span, 1e-9):.2f}%), peak "
+          f"device memory {out['peak'] / 2**20:.1f} MiB")
+    check_launches(label, out)
     if init is None or init >= INIT_WITHIN:
         fail(f"{label}: not initialized within the first {INIT_WITHIN} "
              f"frames (init frame {init})")
@@ -527,10 +640,6 @@ def check_system(Ts, out, label="system", min_lines=0):
     if not ate < ATE_FRACTION * max(span, 0.2):
         fail(f"{label}: ATE {ate:.4f} m is not below {ATE_FRACTION:.0%} of "
              f"the {span:.3f} m span")
-    if out["launches"] != expected:
-        fail(f"{label}: K1 launched {out['launches']} times, expected 3 x "
-             f"{n_track} tracked frames + {len(times['match'])} init matches "
-             f"= {expected}")
     return ate, span
 
 
@@ -559,6 +668,211 @@ def lines_config(small: bool = False, use_lines: bool = True):
                       p1=0, p2=0, k3=0, use_lines=use_lines,
                       use_loop_closing=False, grow_map=False, **LINES_HELP,
                       **(LINES_SMALL if small else {}))
+
+
+def _np(x):
+    """A tensor of either package as a numpy array."""
+    return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+
+
+def render_reloc_sequence(n_frames=RELOC_FRAMES):
+    """The kidnap sequence of tests/test_reloc_e2e.py: `make_scene(seed=2)`
+    along `trajectory(30, "orbit", amplitude=1.0)`, 640x480, fx = fy =
+    500."""
+    from plslam_tpu_torch.datasets import synthetic
+    scene = synthetic.make_scene(seed=2)
+    Ts = synthetic.trajectory(n_frames, "orbit", amplitude=1.0)
+    return Ts, [synthetic.render(scene, T) for T in Ts]
+
+
+def reloc_config():
+    """The relocalization phase's `SLAMConfig`: the defaults (1024
+    features, 8 levels, 48 x 12288 x 1024, lines, loop closing and growth
+    on) with the renderer's camera and tests/test_reloc_e2e.py's cadence
+    pins, which make every frame after initialization a keyframe."""
+    from plslam_tpu_torch.models.system import SLAMConfig
+    return SLAMConfig(fx=FX, fy=FX, cx=WIDTH / 2, cy=HEIGHT / 2, k1=0, k2=0,
+                      p1=0, p2=0, k3=0, **RELOC_PINS)
+
+
+def run_kidnap(slam, frames, Ts, kidnap, step=None):
+    """tests/test_reloc_e2e.py's kidnap on either package's `System`: track
+    RELOC_KIDNAP_AFTER frames, flush, `kidnap(slam)` (the test's identity
+    velocity and far-off last pose), track the rest, each frame through
+    `step(i)` (default: `track_monocular`). Returns the keyframes before the
+    kidnap, the relocalizations (frame, inliers, anchor keyframe), the final
+    state and the Sim3-aligned ATE over the frames from RELOC_ATE_FROM
+    on."""
+    from plslam_tpu_torch.datasets import synthetic
+    if step is None:
+        step = lambda i: slam.track_monocular(frames[i], i / 30.0)
+    for i in range(RELOC_KIDNAP_AFTER):
+        step(i)
+    slam.flush()
+    n_kf_before, state_before = slam.n_kf_host, slam.state
+    kidnap(slam)
+    relocs = []
+    for i in range(RELOC_KIDNAP_AFTER, len(frames)):
+        step(i)
+        if slam.stats and slam.stats[-1].get("reloc"):
+            relocs.append((i, slam.stats[-1]["inliers"], slam._anchor_kf))
+    est = {ts: _np(T) for ts, T in slam.trajectory}
+    idx = [i for i in range(len(frames))
+           if i / 30.0 in est and i >= RELOC_ATE_FROM]
+    ate = synthetic.ate_rmse(np.stack([est[i / 30.0] for i in idx]),
+                             Ts[idx]) if len(idx) >= 3 else float("nan")
+    return dict(n_kf_before=n_kf_before, state_before=state_before,
+                relocs=relocs, state=slam.state, ate=ate, poses=len(idx),
+                kf=slam.n_keyframes(), pts=slam.n_map_points())
+
+
+def reloc_failures(r) -> list:
+    """tests/test_reloc_e2e.py's bars on `run_kidnap`'s result."""
+    bad = []
+    if r["state_before"] != "OK" or r["n_kf_before"] <= 5:
+        bad.append(f"{r['n_kf_before']} keyframes (state "
+                   f"{r['state_before']}) before the kidnap, need > 5")
+    if not r["relocs"]:
+        bad.append("relocalization never fired")
+    if r["state"] != "OK":
+        bad.append(f"state {r['state']} at the end")
+    if not r["ate"] < RELOC_ATE_MAX:
+        bad.append(f"ATE {r['ate']:.4f} over frames >= {RELOC_ATE_FROM} "
+                   f"(>= {RELOC_ATE_MAX})")
+    return bad
+
+
+def render_loop_sequence(n_frames=LOOP_FRAMES):
+    """The circuit of tests/test_loop_closure_e2e.py: a 360-degree circle of
+    radius 2 inside `make_scene(seed=7, layout="box")`, rendered at fx =
+    500 (and tracked at fx = 512, a 2.4% focal error)."""
+    from plslam_tpu_torch.datasets import synthetic
+    scene = synthetic.make_scene(seed=7, layout="box")
+    Ts = synthetic.trajectory(n_frames, "circle", amplitude=2.0)
+    return Ts, [synthetic.render(scene, T) for T in Ts]
+
+
+def loop_config(small: bool = True):
+    """The loop phase's `SLAMConfig`: tests/test_loop_closure_e2e.py's
+    widths (a), or with `small=False` the defaults (b), with that test's
+    camera (fx 512) and pins; loop closing and growth on."""
+    from plslam_tpu_torch.models.system import SLAMConfig
+    return SLAMConfig(fx=512.0, fy=512.0, cx=WIDTH / 2, cy=HEIGHT / 2, k1=0,
+                      k2=0, p1=0, p2=0, k3=0, **LOOP_PINS,
+                      **(LOOP_SMALL if small else {}))
+
+
+def loop_metrics(slam, Ts) -> dict:
+    """The loop circuit's numbers on either package's flushed `System`:
+    loops, the last closure, global-BA rounds, growth events and the
+    keyframe ATEs of tests/test_loop_closure_e2e.py (before the correction,
+    right after it, at the end, over the keyframes that existed at the
+    closure) and of the exported trajectory."""
+    from plslam_tpu_torch.datasets import synthetic
+    lc = slam.loop_closer
+    n_kf = slam.n_kf_host
+    fid = _np(slam.ms.kf_frame_id)[:n_kf]
+    kf_T = _np(slam.ms.kf_T)[:n_kf]
+    est = {ts: _np(T) for ts, T in slam.trajectory}
+    idx = [i for i in range(len(Ts)) if i / 30.0 in est]
+    out = dict(n_loops=lc.n_loops, closure=lc.last_closure,
+               n_gba=slam.n_gba_done, n_growths=slam.n_growths, kf=n_kf,
+               pts=slam.n_map_points(), max_kf=slam.map_cfg.max_kf,
+               max_pt=slam.map_cfg.max_pt,
+               lost=sum(1 for s in slam.stats if s.get("lost")),
+               ate_kf=synthetic.ate_rmse(kf_T, Ts[fid]),
+               ate_traj=synthetic.ate_rmse(
+                   np.stack([est[i / 30.0] for i in idx]), Ts[idx]),
+               ate_pre=None, ate_corr=None, ate_final=None)
+    if lc.n_loops:
+        k, _ = lc.last_closure
+        n_pre = min(k + 1, n_kf)
+        gt = Ts[fid][:n_pre]
+        out.update(ate_pre=synthetic.ate_rmse(lc.pre_correction_kf_T[:n_pre],
+                                              gt),
+                   ate_corr=synthetic.ate_rmse(
+                       lc.post_correction_kf_T[:n_pre], gt),
+                   ate_final=synthetic.ate_rmse(kf_T[:n_pre], gt))
+    return out
+
+
+def loop_failures(m) -> list:
+    """tests/test_loop_closure_e2e.py's bars (plus a growth event) on
+    `loop_metrics`' result."""
+    bad = []
+    if m["n_loops"] < 1:
+        return ["no loop closure fired"]
+    k, c = m["closure"]
+    if k - c < 15:
+        bad.append(f"closure ({k}, {c}) is not a long-range loop")
+    if m["n_gba"] < 1:
+        bad.append("global BA never completed")
+    if not m["ate_corr"] < m["ate_pre"]:
+        bad.append(f"corrected keyframe ATE {m['ate_corr']:.4f} >= "
+                   f"{m['ate_pre']:.4f} before the closure")
+    if not m["ate_final"] < m["ate_pre"]:
+        bad.append(f"final keyframe ATE {m['ate_final']:.4f} >= "
+                   f"{m['ate_pre']:.4f} before the closure")
+    if not m["ate_traj"] < 1.5 * m["ate_final"] + 0.05:
+        bad.append(f"trajectory ATE {m['ate_traj']:.4f} >= 1.5 x "
+                   f"{m['ate_final']:.4f} + 0.05")
+    if m["n_growths"] < 1:
+        bad.append("the map never grew")
+    return bad
+
+
+def format_loop(m) -> str:
+    f = lambda x: "n/a" if x is None else f"{x:.4f}"
+    return (f"{m['n_loops']} loop(s), last closure {m['closure']}, "
+            f"{m['n_gba']} global BA(s) done, {m['n_growths']} growth "
+            f"event(s) (capacity {m['max_kf']} x {m['max_pt']}), "
+            f"{m['kf']} keyframes, {m['pts']} points, {m['lost']} LOST "
+            f"frames; keyframe ATE before the closure {f(m['ate_pre'])}, "
+            f"after the correction {f(m['ate_corr'])}, at the end "
+            f"{f(m['ate_final'])}; all keyframes {f(m['ate_kf'])}; "
+            f"trajectory {f(m['ate_traj'])}")
+
+
+def check_reloc(out, r):
+    """The relocalization phase: tests/test_reloc_e2e.py's bars, the
+    relocalizations (frame, inliers, anchor keyframe), host ms per attempt
+    and K1's launch count."""
+    print_stage_times("reloc", out["times"])
+    x = out["times"]["reloc"]
+    print(f"reloc: {r['n_kf_before']} keyframes before the kidnap; "
+          f"relocalizations (frame, inliers, anchor keyframe) {r['relocs']}; "
+          f"{len(x)} attempts, host ms per attempt "
+          f"{[round(1e3 * t, 2) for t in x]}; state {r['state']} at the end, "
+          f"{r['kf']} keyframes, {r['pts']} points; ATE over frames >= "
+          f"{RELOC_ATE_FROM} {r['ate']:.4f} m over {r['poses']} poses")
+    check_launches("reloc", out)
+    bad = reloc_failures(r)
+    if bad:
+        fail("reloc: " + "; ".join(bad))
+
+
+def check_loop(label, Ts, out) -> list:
+    """A loop phase: its counts and ATEs, the stage host times, what the
+    Sim3 stages' gates rejected, and K1's launch count; returns what fails
+    tests/test_loop_closure_e2e.py's bars plus a growth event."""
+    m = loop_metrics(out["slam"], Ts)
+    print(f"{label}: {format_loop(m)}")
+    print_stage_times(label, out["times"])
+    log = out["sim3_log"]
+    gates = [sum(1 for r in log if r[3] < 12),
+             sum(1 for r in log if r[3] >= 12 and r[4] < 20),
+             sum(1 for r in log if r[3] >= 12 and r[4] >= 20 and r[2] < 40)]
+    drift = sum(1 for r in log if r[3] >= 12 and r[4] >= 20 and r[2] >= 40
+                and r[5] > out["slam"].cfg.loop_max_drift_rot)
+    print(f"{label}: {len(log)} Sim3 stages: {gates[0]} under the 12-inlier "
+          f"RANSAC floor, then {gates[1]} under 20 LM inliers, {gates[2]} "
+          f"under 40 matches, {drift} past the drift gate, "
+          f"{len(log) - sum(gates) - drift} accepted; the 5 with the most LM "
+          f"inliers as (keyframe, candidate, matches, RANSAC inliers, LM "
+          f"inliers, drift rad): "
+          f"{sorted(log, key=lambda r: (-r[4], -r[2]))[:5]}")
+    check_launches(label, out)
+    return loop_failures(m)
 
 
 def check_lines_small(Ts, on, off):
@@ -752,9 +1066,74 @@ def main() -> int:
     check_detect_on_card(frames_ln)
     line_launches = lines_out["launches"] + sum(o["launches"]
                                                 for o in small.values())
+
+    # the relocalization phase: tests/test_reloc_e2e.py's kidnap at the
+    # defaults
+    t0 = time.perf_counter()
+    Ts_rl, frames_rl = render_reloc_sequence()
+    print(f"rendered the {RELOC_FRAMES}-frame kidnap sequence in "
+          f"{time.perf_counter() - t0:.1f} s")
+    reloc = {}
+
+    def kidnap(slam):
+        from plslam_tpu_torch.geometry import se3
+        slam.velocity = torch.eye(4, device=device)
+        slam.T_last = se3.se3_exp(torch.tensor(KIDNAP_XI, device=device))
+
+    t0 = time.perf_counter()
+    rl_out = run_system(frames_rl, reloc_config(), record_calls=False,
+                        drive=lambda slam, step: reloc.update(run_kidnap(
+                            slam, frames_rl, Ts_rl, kidnap, step)))
+    print(f"reloc: {RELOC_FRAMES} frames in {time.perf_counter() - t0:.1f} s")
+    check_reloc(rl_out, reloc)
+
+    # the loop phase: tests/test_loop_closure_e2e.py's circuit at its widths
+    # (a) and at the defaults (b)
+    t0 = time.perf_counter()
+    Ts_lp, frames_lp = render_loop_sequence()
+    print(f"rendered the {LOOP_FRAMES}-frame circuit in "
+          f"{time.perf_counter() - t0:.1f} s")
+    # whether the circuit closes at the defaults turns on which candidates
+    # become consistent, and the order of float atomics (BA's index_add_)
+    # moves the trajectory from run to run: 9 of 10 runs closed (PERF.md).
+    # The loop phase runs torch's deterministic algorithms, so it repeats.
+    loops, loop_bad = {}, []
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for name, small_widths in (("loop (a)", True), ("loop (b)", False)):
+            t0 = time.perf_counter()
+            loops[name] = run_system(frames_lp, loop_config(small_widths),
+                                     record_calls=False)
+            print(f"{name}: {LOOP_FRAMES} frames in "
+                  f"{time.perf_counter() - t0:.1f} s")
+            loop_bad += [f"{name}: {b}"
+                         for b in check_loop(name, Ts_lp, loops[name])]
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+    # K1 on the calls of the new stages: the first relocalization attempt,
+    # the first Sim3 stage at the default widths (else at (a)'s)
+    sim3_run = loops["loop (b)"] if "sim3" in loops["loop (b)"][
+        "stage_calls"] else loops["loop (a)"]
+    new_calls = list(zip(RELOC_SEARCHES, rl_out["stage_calls"]["reloc"])) \
+        + list(zip(SIM3_SEARCHES, sim3_run["stage_calls"]["sim3"]))
+    if len(new_calls) != 4 or len(sim3_run["stage_calls"]["sim3"]) != 2:
+        fail(f"recorded {len(new_calls)} K1 calls of the relocalization "
+             f"and Sim3 stages, expected 4")
+    for label, (a, gated) in new_calls:
+        n, p = a["q_bits"].shape[0], a["d_bits"].shape[0]
+        timing[label] = check_case(gm, f"real call, {label}: N={n} P={p} "
+                                   f"gated={gated}", a, gated)
+    if loop_bad:
+        fail("; ".join(loop_bad))
+    new_launches = rl_out["launches"] + sum(o["launches"]
+                                            for o in loops.values())
     print(f"K1 launches: slice {out['launches']}, system "
           f"{sys_out['launches']}, lines (a) {lines_out['launches']}, lines "
-          f"(b) {small[True]['launches']} / {small[False]['launches']}")
+          f"(b) {small[True]['launches']} / {small[False]['launches']}, "
+          f"reloc {rl_out['launches']}, loop (a) "
+          f"{loops['loop (a)']['launches']}, loop (b) "
+          f"{loops['loop (b)']['launches']}")
 
     head = timing[(1024, 12288, True)]
     print(f"card: {card_line()}")
@@ -762,7 +1141,8 @@ def main() -> int:
         "name": "gated_hamming_best2", "route": "cuda",
         "source": "plslam_tpu_torch/csrc/gated_hamming.cu",
         "replaces": "plslam_tpu/ops/pallas_match.py:115",
-        "launches": out["launches"] + sys_out["launches"] + line_launches,
+        "launches": out["launches"] + sys_out["launches"] + line_launches
+        + new_launches,
         "max_abs_err": max(c["err"] for c in timing.values()),
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],

@@ -5,6 +5,7 @@ and validity masks. The field names, shapes and dtypes are those of the JAX
 `MapState`, so a map crosses between the packages field by field
 (`mapstate/checkpoint.from_numpy`). `dataclasses.replace` stands in for
 `_replace`; functions documented as in-place update the tensors directly.
+`grow` returns a new map of larger capacities.
 """
 from __future__ import annotations
 
@@ -156,11 +157,34 @@ def covis_rows(ms: MapState, ks):
     return torch.where(ms.kf_valid[ks][:, None], w, 0)
 
 
+def covisibility(ms: MapState, min_weight: int = 0):
+    """(K, K) covisibility weights, shared map points per keyframe pair
+    (`KeyFrame::UpdateConnections`; map lines do not count), as `covis_rows`
+    over chunks of keyframes so that the (C, K, N) gather stays under 2^24
+    elements."""
+    K, N = ms.kf_pt_idx.shape
+    chunk = max(1, min(K, (1 << 24) // max(K * N, 1)))
+    ks = torch.arange(K, device=ms.kf_pt_idx.device)
+    W = torch.cat([covis_rows(ms, c) for c in ks.split(chunk)])
+    return torch.where(W >= min_weight, W, 0) if min_weight > 0 else W
+
+
 def observers_of_points(ms: MapState):
     """(K, P) bool incidence: keyframe k observes point p."""
     obs = (ms.kf_pt_idx >= 0) & ms.kf_valid[:, None] & ms.kf_kp_valid
     return row_bitmap(torch.where(obs, ms.kf_pt_idx, -1),
                       ms.pt_xyz.shape[0])
+
+
+def grow(ms: MapState, cfg_new: MapConfig) -> MapState:
+    """A copy of `ms` in freshly allocated arrays of the larger capacities
+    `cfg_new` (double-and-pad growth; the reference's map grows on the
+    heap). The new slots hold `allocate`'s empty values."""
+    new = allocate(cfg_new, ms.pt_xyz.device)
+    for name in FIELDS:
+        src, dst = getattr(ms, name), getattr(new, name)
+        dst[tuple(slice(0, n) for n in src.shape)] = src
+    return new
 
 
 def append_slots(counter, create_mask, capacity: int):

@@ -33,10 +33,11 @@ from ..ops.extract import PointFeatures
 from ..ops.lines import LineFeatures, _angle_diff
 from ..optim import local_ba
 from ..vocab import bow
-from .tracking import _bitmap, _pixels, _row
+from .tracking import _bitmap, _pixels, _row, _top
 
 TH_LOW = 50
 CHI2_2D = 5.991
+GBA_MERGE_MAX_LAG = 16   # keyframes born during a global BA walked by parent
 
 
 def _scatter_rows(dst, slot, ok, src):
@@ -465,11 +466,69 @@ def project_and_bind(cam, ms: MapState, kf, cand_mask, radius: float = 3.0,
     return ms
 
 
-def _top(x, k: int, dim: int = -1):
-    """(values, indices) of the k largest along `dim`, ties to the lower
-    index (`lax.top_k`'s order)."""
-    v, i = torch.sort(x, dim=dim, descending=True, stable=True)
-    return v.narrow(dim, 0, k), i.narrow(dim, 0, k)
+def loop_fuse(cam, ms: MapState, kf, cand_mask, radius: float = 4.0,
+              max_hamming: int = 50) -> MapState:
+    """Loop fusion with replace semantics (`SearchAndFuse`,
+    `MapPoint::Replace`), in place: project the loop-side points
+    `cand_mask` (P,) into keyframe `kf`, the same visibility tests as
+    `project_and_bind`, a radius of `radius` x 1.2^octave around each
+    keypoint, Hamming <= `max_hamming` and mutual best over the keyframe's
+    keypoints. A free keypoint binds its match; a keypoint bound to a
+    non-loop point has that point replaced by its match everywhere in the
+    map, its observation count moved over and the duplicate invalidated.
+    When two keypoints replace the same point, the later one wins. The
+    search is plain PyTorch: its radius is per keypoint, not K1's per map
+    point."""
+    P, N = ms.pt_xyz.shape[0], ms.kf_uv.shape[1]
+    dev = ms.pt_xyz.device
+    kf = _index(kf, dev)
+    T = _row(ms.kf_T, kf)
+    Xc = se3.transform(T, ms.pt_xyz)
+    z = Xc[:, 2]
+    iz = 1.0 / z.clamp_min(1e-6)
+    u = cam.fx * Xc[:, 0] * iz + cam.cx
+    v = cam.fy * Xc[:, 1] * iz + cam.cy
+    in_img = (u >= 0) & (u < cam.width) & (v >= 0) & (v < cam.height)
+    po = ms.pt_xyz - se3.se3_inv(T)[:3, 3]
+    dist = torch.linalg.vector_norm(po, dim=-1)
+    in_range = (dist >= 0.8 * ms.pt_min_dist) & (dist <= 1.2 * ms.pt_max_dist)
+    view_cos = torch.sum(po * ms.pt_normal, dim=-1) / dist.clamp_min(1e-6)
+    vis = (cand_mask & ms.pt_valid & (z > 0) & in_img & in_range
+           & (view_cos > 0.5))
+
+    octave = _row(ms.kf_octave, kf).to(torch.float32)
+    r = radius * torch.full_like(octave, 1.2).pow(octave)[:, None]   # (N, 1)
+    uv = _row(ms.kf_uv, kf)
+    mask = (((uv[:, 0:1] - u[None, :]).abs() < r)
+            & ((uv[:, 1:2] - v[None, :]).abs() < r) & vis[None, :]
+            & (_row(ms.kf_kp_valid, kf) & _row(ms.kf_valid, kf))[:, None])
+    idx, best, _, mutual = hamming.mutual_best(
+        hamming.distance_matrix(_row(ms.kf_desc, kf), ms.pt_desc), mask)
+    bind = (best <= max_hamming) & mutual
+    old = _row(ms.kf_pt_idx, kf)
+    oldc = old.clamp(0, P - 1).long()
+    is_dup = bind & (old >= 0) & ~cand_mask[oldc] & (oldc != idx)
+    is_new = bind & (old < 0)
+    # duplicate id -> loop point id (identity elsewhere), map-wide
+    lane = torch.full((P + 1,), -1, dtype=torch.long, device=dev)
+    lane.scatter_reduce_(0, torch.where(is_dup, oldc, P),
+                         torch.arange(N, device=dev), reduce="amax")
+    lane = lane[:P]
+    lut = torch.where(lane >= 0, idx[lane.clamp_min(0)],
+                      torch.arange(P, device=dev))
+    pid = ms.kf_pt_idx.clamp(0, P - 1).long()
+    ms.kf_pt_idx.copy_(torch.where(ms.kf_pt_idx >= 0, lut[pid].to(torch.int32),
+                                   ms.kf_pt_idx))
+    _set_row(ms.kf_pt_idx, kf, torch.where(is_new, idx.to(torch.int32),
+                                            _row(ms.kf_pt_idx, kf)))
+    # move observation counts to the kept points; kill the duplicates
+    n_obs = torch.cat([ms.pt_n_obs, ms.pt_n_obs.new_zeros(1)])
+    n_obs.index_add_(0, torch.where(is_dup, idx, P),
+                     torch.where(is_dup, ms.pt_n_obs[oldc], 0))
+    n_obs.index_add_(0, torch.where(is_new, idx, P), is_new.to(torch.int32))
+    ms.pt_n_obs.copy_(n_obs[:P])
+    ms.pt_valid.copy_(ms.pt_valid & ~_bitmap(P, oldc, is_dup))
+    return ms
 
 
 def search_in_neighbors(cam, ms: MapState, k_new,
@@ -703,13 +762,15 @@ class BASelection(NamedTuple):
     win_ln_idx: torch.Tensor   # (W, Mf)
 
 
-def _select(win_idx, win_obs, valid, budget: int):
-    """Landmarks observed by the window, newest ids first, into `budget`
-    slots: (sel, sel_ok, slot (W, M) or -1)."""
+def _select(win_idx, win_obs, valid, budget: int, rank=None):
+    """Landmarks observed by the window, highest `rank` first (default:
+    newest ids first), into `budget` slots: (sel, sel_ok, slot (W, M) or
+    -1)."""
     n = valid.shape[0]
     observed = _bitmap(n, win_idx, win_obs) & valid
-    scores = torch.where(observed, torch.arange(
-        n, dtype=torch.int32, device=valid.device), -1)
+    if rank is None:
+        rank = torch.arange(n, dtype=torch.int32, device=valid.device)
+    scores = torch.where(observed, rank, -1)
     _, sel = _top(scores, budget)
     sel_ok = observed[sel]
     lookup = torch.full((n,), -1, dtype=torch.int32, device=valid.device)
@@ -730,12 +791,16 @@ def _grid(base, slot, has, values):
 
 
 def ba_select(ms: MapState, sigma2_levels, window: int = 8,
-              p_ba: int = 4096, l_ba: int = 512) -> BASelection:
+              p_ba: int = 4096, l_ba: int = 512,
+              rank_by_obs: bool = False) -> BASelection:
     """The last `window` keyframes and the landmarks they observe as a
     fixed-shape `BAProblem` (the window half of
     `LocalBundleAdjustmentWithLine`). The two oldest valid window slots
-    are fixed, which pins the monocular scale gauge; when the budgets bind,
-    the newest landmarks win (they need the refinement most)."""
+    are fixed, which pins the monocular scale gauge. When the point budget
+    binds, the newest points win (local BA: they need the refinement most),
+    or with `rank_by_obs` the most observed ones, newer ids breaking ties
+    in groups of 8 (global BA after a loop: the fused cross-loop landmarks
+    are old ids and carry the coupling)."""
     p_ba = min(p_ba, ms.pt_xyz.shape[0])
     l_ba = min(l_ba, ms.ln_valid.shape[0])
     K_all = ms.kf_T.shape[0]
@@ -750,8 +815,13 @@ def ba_select(ms: MapState, sigma2_levels, window: int = 8,
     kf_fixed = (ar == first) | (ar == second)
 
     win_pt_idx = ms.kf_pt_idx[ids_c]                                 # (W, N)
+    rank = None
+    if rank_by_obs:
+        rank = (ms.pt_n_obs.clamp(0, 32767) * 32768
+                + (torch.arange(ms.pt_xyz.shape[0], dtype=torch.int32,
+                                device=dev) >> 3))
     sel, sel_ok, slot = _select(win_pt_idx, (win_pt_idx >= 0)
-                                & kf_mask[:, None], ms.pt_valid, p_ba)
+                                & kf_mask[:, None], ms.pt_valid, p_ba, rank)
     has = slot >= 0
     slot_safe = slot.clamp(0, p_ba - 1)
     obs_uv = _grid(torch.zeros((W, p_ba, 2), device=dev), slot_safe, has,
@@ -787,20 +857,27 @@ def _no_line(device):
     return torch.stack([f(1.0), f(0.0), f(-1e9)])
 
 
+def _repin(old_ln, new_ln):
+    """(l, 2, 3) endpoints on the optimized infinite lines `new_ln`, at the
+    points closest to the old endpoints (the endpoint residual leaves the
+    along-line direction free)."""
+    new_a = new_ln[:, 0]
+    d = new_ln[:, 1] - new_a
+    d = d / torch.linalg.vector_norm(d, dim=-1, keepdim=True).clamp_min(1e-9)
+    ta = torch.sum((old_ln[:, 0] - new_a) * d, dim=-1)
+    tb = torch.sum((old_ln[:, 1] - new_a) * d, dim=-1)
+    return torch.stack([new_a + ta[:, None] * d, new_a + tb[:, None] * d],
+                       dim=1)
+
+
 def ba_writeback(ms: MapState, s: BASelection, res) -> MapState:
     """Write a solved BA window back into the map, in place: poses, points,
     lines re-pinned at the points of the optimized infinite line closest to
     their old endpoints, and erase the outlier observations."""
     _scatter_rows(ms.kf_T, s.ids_c, s.kf_mask, res.kf_T)
     _scatter_rows(ms.pt_xyz, s.sel, s.sel_ok, res.pt_xyz)
-    old_ln = ms.ln_xyz[s.lsel]                                 # (l_ba, 2, 3)
-    new_a = res.ln_xyz[:, 0]
-    d = res.ln_xyz[:, 1] - new_a
-    d = d / torch.linalg.vector_norm(d, dim=-1, keepdim=True).clamp_min(1e-9)
-    ta = torch.sum((old_ln[:, 0] - new_a) * d, dim=-1)
-    tb = torch.sum((old_ln[:, 1] - new_a) * d, dim=-1)
-    _scatter_rows(ms.ln_xyz, s.lsel, s.lsel_ok, torch.stack(
-        [new_a + ta[:, None] * d, new_a + tb[:, None] * d], dim=1))
+    _scatter_rows(ms.ln_xyz, s.lsel, s.lsel_ok,
+                  _repin(ms.ln_xyz[s.lsel], res.ln_xyz))
 
     obs_bad = s.prob.obs_mask & ~res.obs_inlier                 # (W, p_ba)
     bad_here = s.has & obs_bad.gather(1, s.slot_safe.long())    # (W, N)
@@ -816,15 +893,78 @@ def ba_writeback(ms: MapState, s: BASelection, res) -> MapState:
 
 def run_local_ba(cam, ms: MapState, sigma2_levels, window: int = 8,
                  p_ba: int = 4096, l_ba: int = 512, iters_a: int = 5,
-                 iters_b: int = 10) -> MapState:
+                 iters_b: int = 10, rank_by_obs: bool = False) -> MapState:
     """Local BA over the last `window` keyframes
     (`LocalBundleAdjustmentWithLine`), in place: select, solve, write back,
-    erase the outlier observations."""
+    erase the outlier observations. With a window spanning the map and
+    `rank_by_obs`, this is the global BA (`GlobalBundleAdjustemnt`)."""
     selection = ba_select(ms, sigma2_levels, window=window, p_ba=p_ba,
-                          l_ba=l_ba)
+                          l_ba=l_ba, rank_by_obs=rank_by_obs)
     res = local_ba.bundle_adjust(selection.prob, cam, iters_a=iters_a,
                                  iters_b=iters_b)
     return ba_writeback(ms, selection, res)
+
+def gba_merge(ms: MapState, s: BASelection, res, kf_T_old,
+              start_kf: int) -> MapState:
+    """Merge a global BA solved over several frames into the current map,
+    in place (`RunGlobalBundleAdjustment`): the window's keyframes and
+    selected landmarks take the optimized values; keyframes created since
+    the BA started (`start_kf` on) keep their pose relative to their
+    spanning-tree parent (the earlier keyframe sharing the most points, >=
+    15, else the previous one), resolved in index order for the first
+    GBA_MERGE_MAX_LAG of them and through the tip keyframe's correction
+    beyond; the other landmarks move with their reference keyframe's
+    correction. `kf_T_old` holds the poses when the BA started. No
+    observation is erased. Accepted lanes only are written."""
+    K, K_old, P = ms.kf_T.shape[0], kf_T_old.shape[0], ms.pt_xyz.shape[0]
+    dev = ms.pt_xyz.device
+    ids = torch.arange(K, device=dev)
+    # 1) optimized window poses
+    kf_T = ms.kf_T.clone()
+    _scatter_rows(kf_T, s.ids_c, s.kf_mask, res.kf_T)
+    # poses before: the BA-start snapshot, creation poses for newer ones
+    old_all = ms.kf_T.clone()
+    old_all[:K_old] = kf_T_old
+    old_all = torch.where((ids < start_kf)[:, None, None], old_all, ms.kf_T)
+    # 2) tip-anchor delta for keyframes past the parent walk
+    anchor = min(max(start_kf - 1, 0), K - 1)
+    delta = se3.se3_inv(kf_T_old[min(anchor, K_old - 1)]) @ kf_T[anchor]
+    kf_T = torch.where(((ids >= start_kf) & ms.kf_valid)[:, None, None],
+                       ms.kf_T @ delta, kf_T)
+    # 2b) spanning-tree parent walk
+    lag = GBA_MERGE_MAX_LAG
+    ks = (start_kf + torch.arange(lag, device=dev)).clamp(0, K - 1)
+    Wm = torch.where(ids[None, :] < ks[:, None],
+                     mstate.covis_rows(ms, ks), -1)               # (lag, K)
+    w_par, par = Wm.max(dim=1)           # first maximum (`jnp.argmax`)
+    par = torch.where(w_par >= 15, par, (ks - 1).clamp_min(0))
+    upd = (ks >= start_kf) & (ks < ms.n_kf) & ms.kf_valid[ks]
+    for i in range(lag):
+        k, p = ks[i:i + 1], par[i:i + 1]
+        T_new = ms.kf_T[k] @ se3.se3_inv(old_all[p]) @ kf_T[p]
+        _scatter_rows(kf_T, k, upd[i:i + 1], T_new)
+    # 3) landmarks: BA values for the selected, the rest re-mapped
+    sel_mask = _bitmap(P, s.sel, s.sel_ok)
+    ref = ms.pt_first_kf.clamp(0, K - 1).long()
+    Xw = se3.transform(se3.se3_inv(kf_T[ref]),
+                       se3.transform(old_all[ref], ms.pt_xyz))
+    keep = (ms.pt_valid & ~sel_mask)[:, None]
+    pt_xyz = torch.where(keep, Xw, ms.pt_xyz)
+    _scatter_rows(pt_xyz, s.sel, s.sel_ok, res.pt_xyz)
+    Lc = ms.ln_valid.shape[0]
+    lsel_mask = _bitmap(Lc, s.lsel, s.lsel_ok)
+    lref = ms.ln_first_kf.clamp(0, K - 1).long()
+    Tl_old, Tl_new_inv = old_all[lref], se3.se3_inv(kf_T[lref])
+    remap = lambda e: se3.transform(Tl_new_inv, se3.transform(Tl_old, e))
+    ln_xyz = torch.where((ms.ln_valid & ~lsel_mask)[:, None, None],
+                         torch.stack([remap(ms.ln_xyz[:, 0]),
+                                      remap(ms.ln_xyz[:, 1])], 1), ms.ln_xyz)
+    _scatter_rows(ln_xyz, s.lsel, s.lsel_ok,
+                  _repin(ms.ln_xyz[s.lsel], res.ln_xyz))
+    ms.kf_T.copy_(kf_T)
+    ms.pt_xyz.copy_(pt_xyz)
+    ms.ln_xyz.copy_(ln_xyz)
+    return ms
 
 
 def process_keyframe(cam, ms: MapState, feats, lfeats, T, matched_pt,

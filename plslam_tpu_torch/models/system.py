@@ -4,16 +4,24 @@ Port of the monocular path of `plslam_tpu/models/system.py`, points and
 lines. The host loop owns the `MapState` and calls the ported stages in the
 JAX package's order: extraction (points, and with `use_lines` line segments)
 -> two-view initialization (`match_frames`, H/F RANSAC, initial map with its
-lines + local BA) -> per-frame `track_local_map` -> keyframe decision -> the
-keyframe chain (`mapping.process_keyframe`), synchronously at keyframe
-creation.
+lines + local BA) -> per-frame `track_local_map` (and one round of an
+in-flight global BA) -> keyframe decision (with `grow_map`, capacity growth
+first) -> the keyframe chain (`mapping.process_keyframe`), synchronously at
+keyframe creation -> loop closing (`models/loop_closing`), which schedules
+the asynchronous global BA on a closure. A LOST frame relocalizes
+(`tracking.relocalize`) once the map has more than 5 keyframes, and resets
+the map below that.
 
 Host reads: a tracked frame reads back one 6-scalar row (`_resolve_pending`);
 an initialization attempt reads its feature and match counts, its success
-flag and, once it succeeds, the triangulated points. A frame given as a host
+flag and, once it succeeds, the triangulated points; a relocalization
+attempt reads its verdict; loop detection reads its candidates one keyframe
+late from pinned memory, and a consistent candidate's Sim3 stage and
+correction read their counts and the covisibility. A frame given as a host
 array is copied from pageable memory, which also waits for the device's
-queue; tracking and the keyframe chain never wait. Options that need
-modules not ported yet raise `NotImplementedError` naming their ROADMAP item.
+queue; tracking, global-BA rounds and the keyframe chain never wait.
+Options that need modules not ported yet raise `NotImplementedError` naming
+their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -28,7 +36,9 @@ import torch
 from ..geometry import camera, se3, triangulation
 from ..mapstate import state as mstate
 from ..models import mapping, tracking
+from ..models.loop_closing import LoopClosing
 from ..ops import extract, lines
+from ..optim import local_ba
 from ..solvers import twoview
 
 
@@ -160,13 +170,8 @@ LOST = "LOST"
 
 # options whose modules are not ported yet: (test, what, ROADMAP item)
 _UNPORTED = (
-    (lambda c: c.use_loop_closing, "use_loop_closing", 13),
-    (lambda c: c.young_gba_until_kf > 0, "young_gba_until_kf (global BA)", 13),
-    (lambda c: c.periodic_gba_every_kf > 0,
-     "periodic_gba_every_kf (global BA)", 13),
     (lambda c: c.sensor != "mono", "sensor != 'mono'", 14),
     (lambda c: c.async_pipeline, "async_pipeline", 15),
-    (lambda c: c.grow_map, "grow_map (capacity growth)", 16),
     (lambda c: c.subpixel, "subpixel (keypoint refinement)", 16),
 )
 
@@ -177,10 +182,12 @@ def _not_ported(what: str, item: int):
 
 
 class System:
-    """Monocular point-and-line SLAM on one device. Public surface as the JAX
-    package's: `track_monocular`, `trajectory`, `poses`, the TUM/KITTI
-    trajectory writers, `n_map_points`, `n_keyframes`, `reset`, `flush`,
-    `shutdown` and the localization-mode toggles."""
+    """Monocular point-and-line SLAM on one device, `cuda` unless `device`
+    names another (the CPU runs the kernels' plain versions). Public
+    surface as the JAX package's: `track_monocular`, `trajectory`, `poses`,
+    the TUM/KITTI trajectory writers, `n_map_points`, `n_keyframes`,
+    `reset`, `flush`, `finish_gba`, `run_global_ba`, `shutdown` and the
+    localization-mode toggles."""
 
     def __init__(self, config: Optional[SLAMConfig] = None, device=None):
         config = SLAMConfig() if config is None else config
@@ -188,9 +195,10 @@ class System:
             if test(config):
                 raise _not_ported(what, item)
         self.cfg = config
-        self.device = torch.device(device if device is not None else
-                                   "cuda" if torch.cuda.is_available()
-                                   else "cpu")
+        self.device = torch.device("cuda" if device is None else device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("System needs a CUDA device; pass "
+                               "device='cpu' for the kernels' plain versions")
         c = config
         self.cam = camera.Camera.create(c.fx, c.fy, c.cx, c.cy, c.k1, c.k2,
                                         c.p1, c.p2, c.k3, c.width, c.height)
@@ -252,6 +260,15 @@ class System:
             tri_covis=c.tri_covis, tri_covis_k=c.tri_covis_k,
             sin_covis=c.sin_covis, sin_whole_map=c.sin_whole_map,
             sin_reverse_n=c.sin_reverse_n)
+        self._relocalize = partial(
+            tracking.relocalize, cam, sigma2_levels=self.sigma2,
+            scale_factors=self.scale_factors, n_levels=c.n_levels,
+            scale=c.scale_factor, min_inliers=c.reloc_min_inliers)
+        # a depth sensor observes scale: Sim3s keep s = 1 (`bFixScale`)
+        self.loop_closer = LoopClosing(
+            cam, self.map_cfg, self.sigma2, fix_scale=c.sensor != "mono",
+            max_drift_rot=c.loop_max_drift_rot) if c.use_loop_closing \
+            else None
         self.reset()
 
     # ------------------------------------------------------------------
@@ -264,7 +281,15 @@ class System:
         self.frame_id = -1
         self.n_kf_host = 0
         self.last_kf_frame = -1
+        self.last_reloc_frame = -10**9
         self.ref_kf_matches = 0
+        # the local-map anchor after a relocalization (its keyframe), until
+        # the next keyframe; None = the latest keyframe
+        self._anchor_kf = None
+        self._occupancy = (0, 0)   # (n_pt, n_ln) of the last readback
+        self.n_growths = 0
+        self._gba = None           # the in-flight global BA
+        self.n_gba_done = 0
         self._init_feats = self._init_lfeats = None
         self._init_frame_id = -1
         self._init_ts = None
@@ -411,7 +436,9 @@ class System:
             return self._relocalize_frame(feats, timestamp)
         res, self.ms = self._track_update(self.ms, feats, self.T_last,
                                           lfeats=lfeats,
-                                          velocity=self.velocity)
+                                          velocity=self.velocity,
+                                          anchor_kf=self._anchor_arg())
+        self._step_gba()
         self.velocity = res.velocity
         self.T_last = res.T
         self._log_frame(timestamp, res.T_rel, self.n_kf_host - 1)
@@ -420,7 +447,8 @@ class System:
 
     def _resolve_pending(self, res, feats, lfeats, timestamp):
         """The frame's LOST / keyframe decisions, from its one readback."""
-        n_inl, n_ln_inl, n_matched, nref3, _, _ = res.scalars.tolist()
+        n_inl, n_ln_inl, n_matched, nref3, n_pt, n_ln = res.scalars.tolist()
+        self._occupancy = (n_pt, n_ln)
         if n_inl < self.cfg.min_track_inliers:
             self.state = LOST
             self.stats.append({"inliers": n_inl, "kf": False, "lost": True})
@@ -432,15 +460,141 @@ class System:
         self.stats.append({"inliers": n_inl, "kf": made_kf, "lost": False,
                            "line_inliers": n_ln_inl})
 
+    def _anchor_arg(self):
+        """The local-map anchor for tracking: None (the latest keyframe) or
+        the keyframe the last relocalization landed in, as a 0-d tensor."""
+        if self._anchor_kf is None:
+            return None
+        return torch.full((), self._anchor_kf, dtype=torch.long,
+                          device=self.device)
+
     def _relocalize_frame(self, feats, timestamp):
-        # a young map is likely junk: reset instead of relocalizing
+        """A LOST frame: on a map of at most 5 keyframes (likely junk) the
+        map resets; otherwise `relocalize` (minimal sets from a generator
+        seeded with seed + frame id), which on success sets the pose, the
+        local-map anchor and the no-keyframe window; else the pose coasts on
+        the motion model and the frame is exported as the last good one."""
         if self.n_kf_host <= 5 and not self.cfg.localization_only:
             self.reset()
             self.stats.append({"inliers": 0, "kf": False, "lost": True,
                                "auto_reset": True})
             return None
-        raise _not_ported("relocalization (LOST with more than 5 "
-                          "keyframes)", 12)
+        gen = torch.Generator().manual_seed(self.cfg.seed + self.frame_id)
+        rok, rT, rn, ranchor = self._relocalize(self.ms, feats,
+                                                generator=gen)
+        if bool(rok):
+            self.state = OK
+            self.velocity = torch.eye(4, device=self.device)
+            self.T_last = rT
+            self.last_reloc_frame = self.frame_id
+            self._anchor_kf = int(ranchor)
+            ref = self.n_kf_host - 1
+            self._log_frame(timestamp,
+                            rT @ se3.se3_inv(self.ms.kf_T[max(ref, 0)]), ref)
+            self.stats.append({"inliers": int(rn), "kf": False,
+                               "lost": False, "reloc": True})
+            return rT
+        T = self.velocity @ self.T_last   # dead reckoning, not exported
+        self._log_frame(timestamp, None, self.n_kf_host - 1, lost=True)
+        self.T_last = T
+        self.stats.append({"inliers": 0, "kf": False, "lost": True})
+        return T
+
+    # ------------------------------------------------------------------
+    # The asynchronous global BA (`RunGlobalBundleAdjustment` in its own
+    # thread, aborted by `mbStopGBA`): its LM runs in rounds, one per
+    # tracked frame, queued behind the frame's work; a new closure aborts it.
+    def _gba_kwargs(self):
+        """The global-BA window and budgets: the map's capacities, capped
+        (the dense reduced camera system grows as K^2 P)."""
+        c = self.map_cfg
+        return dict(window=min(c.max_kf, 128), p_ba=min(c.max_pt, 16384),
+                    l_ba=min(c.max_ln, 1024), rank_by_obs=True)
+
+    def _start_gba(self, n_rounds: int = 4):
+        """Select the whole map and start a global BA of `n_rounds` rounds
+        of 3 LM iterations, with the chi2 demotion after the first (4 after
+        a closure, as the essential graph has already moved the map)."""
+        sel = mapping.ba_select(self.ms, self.sigma2, **self._gba_kwargs())
+        self._gba = {"sel": sel, "st": local_ba.ba_init(sel.prob, self.cam),
+                     "kf_T_old": self.ms.kf_T.clone(),
+                     "start_kf": self.n_kf_host, "round": 0,
+                     "n_rounds": n_rounds}
+
+    def _abort_gba(self):
+        self._gba = None
+
+    def _step_gba(self):
+        """One round of the in-flight global BA; after the last, merge it
+        into the map and carry the latest keyframe's correction over to the
+        tracking pose."""
+        g = self._gba
+        if g is None:
+            return
+        prob = g["sel"].prob
+        g["st"] = local_ba.ba_rounds(prob, self.cam, g["st"], 3, robust=True)
+        g["round"] += 1
+        if g["round"] == 1:
+            g["st"] = local_ba.ba_demote(prob, self.cam, g["st"])
+        if g["round"] < g["n_rounds"]:
+            return
+        res = local_ba.ba_finalize(prob, self.cam, g["st"])
+        k_last = self.n_kf_host - 1
+        T_ref_before = self.ms.kf_T[k_last].clone() if k_last >= 0 else None
+        mapping.gba_merge(self.ms, g["sel"], res, g["kf_T_old"],
+                          g["start_kf"])
+        if k_last >= 0:
+            self.T_last = (self.T_last @ se3.se3_inv(T_ref_before)
+                           @ self.ms.kf_T[k_last])
+        self._gba = None
+        self.n_gba_done += 1
+
+    def finish_gba(self):
+        """Run the in-flight global BA to its end."""
+        while self._gba is not None:
+            self._step_gba()
+
+    def run_global_ba(self):
+        """A synchronous full-map BA (`GlobalBundleAdjustemnt`)."""
+        mapping.run_local_ba(self.cam, self.ms, self.sigma2,
+                             **self._gba_kwargs())
+        self._reanchor(self.n_kf_host - 1)
+
+    def _reanchor(self, k: int):
+        """Tracking restarts from keyframe k's pose with no motion."""
+        if k >= 0:
+            self.T_last = self.ms.kf_T[k].clone()
+            self.velocity = torch.eye(4, device=self.device)
+
+    def _loop_closed(self, k: int):
+        """After a loop correction: track on from keyframe k and start a
+        global BA, aborting any in flight."""
+        self._reanchor(k)
+        self._abort_gba()
+        self._start_gba()
+
+    def _maybe_grow(self):
+        """Double-and-pad capacity growth, from the occupancy of the last
+        readback, with the margins of the worst keyframe: keyframes when 2
+        slots remain, points below 3 x n_kp free slots, lines below 4 x
+        n_lf, each up to its `hard_max_*` ceiling. The global BA's budgets
+        and the loop closer follow the new capacities."""
+        n_pt, n_ln = self._occupancy
+        c, cfg = self.map_cfg, self.cfg
+        new_kf, new_pt, new_ln = c.max_kf, c.max_pt, c.max_ln
+        if self.n_kf_host >= c.max_kf - 2 and c.max_kf < cfg.hard_max_kf:
+            new_kf = min(2 * c.max_kf, cfg.hard_max_kf)
+        if n_pt >= c.max_pt - 3 * c.n_kp and c.max_pt < cfg.hard_max_pt:
+            new_pt = min(2 * c.max_pt, cfg.hard_max_pt)
+        if n_ln >= c.max_ln - 4 * c.n_lf and c.max_ln < cfg.hard_max_ln:
+            new_ln = min(2 * c.max_ln, cfg.hard_max_ln)
+        if (new_kf, new_pt, new_ln) == (c.max_kf, c.max_pt, c.max_ln):
+            return
+        self.map_cfg = c._replace(max_kf=new_kf, max_pt=new_pt, max_ln=new_ln)
+        self.ms = mstate.grow(self.ms, self.map_cfg)
+        self.n_growths += 1
+        if self.loop_closer is not None:
+            self.loop_closer.map_cfg = self.map_cfg
 
     def _maybe_keyframe(self, feats, lfeats, res: tracking.TrackResult,
                         timestamp, n_inl: int, n_matched: int,
@@ -451,6 +605,12 @@ class System:
         stored at the last keyframe while it has fewer than 30)."""
         since = self.frame_id - self.last_kf_frame
         n_kf = self.n_kf_host
+        # none right after a relocalization: the statistics gathered while
+        # lost are unreliable
+        if self.frame_id - self.last_reloc_frame < 2 * self.cfg.kf_max_interval:
+            return False
+        if self.cfg.grow_map:
+            self._maybe_grow()
         if n_kf >= self.map_cfg.max_kf - 1:
             return False
         ref_base = nref3 if nref3 >= 30 else max(self.ref_kf_matches, 15)
@@ -461,6 +621,19 @@ class System:
                          res.matched_ln, self.frame_id, None,
                          do_kf_cull=n_kf % 4 == 3)
         self.n_kf_host = n_kf + 1
+        self._anchor_kf = None
+        if self.loop_closer is not None:
+            self.ms, closed = self.loop_closer.process_keyframe(
+                self.ms, n_kf, seed=self.cfg.seed)
+            if closed:
+                self._loop_closed(n_kf)
+        if (self._gba is None and self.cfg.young_gba_until_kf > 0
+                and 2 < n_kf + 1 <= self.cfg.young_gba_until_kf):
+            self.run_global_ba()      # young map: synchronous, whole map
+        if (self._gba is None and self.cfg.periodic_gba_every_kf > 0
+                and (n_kf + 1) % self.cfg.periodic_gba_every_kf == 0
+                and n_kf + 1 > self.cfg.ba_window):
+            self._start_gba(n_rounds=10)
         self.last_kf_frame = self.frame_id
         self.ref_kf_matches = n_matched
         self.kf_timestamps.append(timestamp)
@@ -471,8 +644,15 @@ class System:
         """`System::Shutdown`: no threads to join."""
 
     def flush(self):
-        """Nothing is deferred: every decision resolves within its frame,
-        and no loop closer or global BA is ported yet."""
+        """Resolve the pending (one keyframe late) loop detection and run
+        any in-flight global BA to its end; per-frame decisions resolve
+        within their frame."""
+        if self.loop_closer is not None and self.n_kf_host > 0:
+            self.ms, closed = self.loop_closer.finish(self.ms,
+                                                      seed=self.cfg.seed)
+            if closed:
+                self._loop_closed(self.n_kf_host - 1)
+        self.finish_gba()
 
     def activate_localization_mode(self):
         self.cfg.localization_only = True

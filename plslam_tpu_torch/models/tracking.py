@@ -8,6 +8,9 @@ indices or a dump slot, and the three point searches go through
 the N x P distance matrix is never formed on the card. The line search gates
 on direction, perpendicular distance, overlap and length ratio, which are not
 K1's gates; it stays plain PyTorch (M x L, a few hundred each).
+Relocalization (`relocalize`) runs both of its searches through K1 too; its
+RANSAC waits for the device (the uploaded minimal sets, the batched eigh and
+SVD), once per LOST frame.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ from ..ops import gated_match, hamming
 from ..ops.extract import PointFeatures
 from ..ops.lines import LineFeatures, _angle_diff
 from ..optim import pose_opt
+from ..vocab import bow
 
 TH_HIGH = 100
 TH_LOW = 50
@@ -56,6 +60,13 @@ def _bitmap(n: int, idx, on):
     hits.index_add_(0, idx.reshape(-1).clamp(0, n - 1).long(),
                     on.reshape(-1).to(torch.int32))
     return hits > 0
+
+
+def _top(x, k: int, dim: int = -1):
+    """(values, indices) of the k largest along `dim`, ties to the lower
+    index (`lax.top_k`'s order)."""
+    v, i = torch.sort(x, dim=dim, descending=True, stable=True)
+    return v.narrow(dim, 0, k), i.narrow(dim, 0, k)
 
 
 def _pixels(cam, Xc):
@@ -368,3 +379,78 @@ def update_point_stats(ms: MapState, result: TrackResult) -> MapState:
     ms.ln_found.index_add_(0, result.matched_ln.clamp(0, L - 1).long(),
                            (result.matched_ln >= 0).to(torch.int32))
     return ms
+
+
+def reloc_candidate_mask(ms: MapState, feats: PointFeatures,
+                         n_cand: int = 8):
+    """Place recognition for relocalization
+    (`KeyFrameDatabase::DetectRelocalizationCandidates`): BoW-score the
+    frame against every keyframe, keep the top `n_cand` scoring >= 0.75 of
+    the best, and admit only their points to the matching (the whole map
+    when no keyframe scores).
+
+    Returns (pt_mask (P,), cand_ids (n_cand,), cand_ok (n_cand,))."""
+    K = ms.kf_pt_idx.shape[0]
+    P = ms.pt_xyz.shape[0]
+    scores = bow.l1_score(bow.bow_vector(feats.desc, feats.valid), ms.kf_bow)
+    ids = torch.arange(K, device=scores.device)
+    valid = ms.kf_valid & (ids < ms.n_kf)
+    top_sc, top_id = _top(torch.where(valid, scores, -1.0), min(n_cand, K))
+    cand_ok = (top_sc > 0) & (top_sc >= 0.75 * top_sc[:1])
+    rows = torch.where(cand_ok[:, None], ms.kf_pt_idx[top_id], -1)
+    pt_mask = _bitmap(P, rows, rows >= 0) & ms.pt_valid
+    return torch.where(cand_ok.any(), pt_mask, ms.pt_valid), top_id, cand_ok
+
+
+def relocalize(cam, ms: MapState, feats: PointFeatures, sigma2_levels,
+               generator, scale_factors, n_levels: int = 8,
+               scale: float = 1.2, min_inliers: int = 50, sets=None):
+    """Relocalization from scratch (`Tracking::Relocalization`): the BoW
+    candidates' points (`reloc_candidate_mask`), a ratio-0.75 search of
+    the frame's keypoints against them (K1 with its gates off), RANSAC EPnP
+    (minimal sets from `generator`, or `sets`), staged-LM refinement; if
+    that lands under `min_inliers`, a widened projection search around the
+    pose (K1, gated, radius x3) and a second refinement, kept when it has
+    more inliers. Two K1 launches per attempt.
+
+    Returns (ok, T, n_inliers, anchor_kf): anchor_kf is the candidate
+    keyframe observing the most inliers of the returned pose (else the
+    latest keyframe), the local-map anchor after a kidnap."""
+    from ..solvers import pnp
+
+    P = ms.pt_xyz.shape[0]
+    device = ms.pt_xyz.device
+    pt_mask, cand_ids, cand_ok = reloc_candidate_mask(ms, feats)
+    idx, best, second = gated_match.gated_hamming_best2(
+        feats.desc, feats.uv_un, feats.octave, feats.valid, ms.pt_desc,
+        torch.zeros((P, 2), device=device), torch.zeros(P, device=device),
+        torch.zeros(P, dtype=torch.int32, device=device), pt_mask,
+        gated=False)
+    ok = (best <= TH_LOW) & (best.to(torch.float32)
+                             < 0.75 * second.to(torch.float32))
+    ok = hamming.dedup_by_target(idx, ok, best, P)
+    s2 = sigma2_levels[feats.octave.long()]
+    no_lines = pose_opt.PoseObs.empty_lines(1, device)
+    res = pnp.ransac_pnp(generator, ms.pt_xyz[idx], feats.uv_un, ok, cam, s2,
+                         sets=sets)
+    out = pose_opt.pose_optimize(cam, res.T, pose_opt.PoseObs(
+        ms.pt_xyz[idx], feats.uv_un, s2, ok, *no_lines))
+    # the acceptance ladder: one wide projection search around that pose
+    idx2, m2, _ = _match_against_map(cam, ms, feats, out.T, scale_factors,
+                                     3.0, True, n_levels, scale,
+                                     pt_mask=pt_mask)
+    out2 = pose_opt.pose_optimize(cam, out.T, pose_opt.PoseObs(
+        ms.pt_xyz[idx2], feats.uv_un, s2, m2, *no_lines))
+    take2 = (out.n_inliers < min_inliers) & (out2.n_inliers > out.n_inliers)
+    T = torch.where(take2, out2.T, out.T)
+    n = torch.where(take2, out2.n_inliers, out.n_inliers)
+    in_pt = torch.where(take2, torch.where(m2 & out2.pt_inlier, idx2, -1),
+                        torch.where(ok & out.pt_inlier, idx, -1))
+    crows = ms.kf_pt_idx[cand_ids]                                  # (C, N)
+    hits = (_bitmap(P, in_pt, in_pt >= 0)[crows.clamp(0, P - 1).long()]
+            & (crows >= 0)).sum(1, dtype=torch.int32)
+    hits = torch.where(cand_ok, hits, -1)
+    anchor = torch.where((hits > 0).any(),
+                         _row(cand_ids, torch.argmax(hits)),
+                         (ms.n_kf - 1).clamp_min(0))
+    return res.ok & (n >= min_inliers), T, n, anchor.to(torch.int32)

@@ -1,9 +1,11 @@
-"""Bag-of-binary-words signatures (LSH word assignment).
+"""Bag-of-binary-words signatures (LSH word assignment) and scoring.
 
-Port of the word and histogram part of `plslam_tpu/vocab/bow.py`: a word is
-12 fixed bit positions of the 256-bit descriptor, drawn from the same numpy
-seed as the JAX package, and a frame signature is the L1-normalized word
-histogram. Keyframe insertion stores it in `MapState.kf_bow`.
+Port of `plslam_tpu/vocab/bow.py` without its optional DBoW2 vocabulary
+(`orbvoc.py`, not ported): a word is 12 fixed bit positions of the 256-bit
+descriptor, drawn from the same numpy seed as the JAX package, and a frame
+signature is the L1-normalized word histogram. Keyframe insertion stores it
+in `MapState.kf_bow`; relocalization and loop detection score against it
+with the DBoW2 L1 score.
 """
 from __future__ import annotations
 
@@ -46,3 +48,25 @@ def bow_vector(desc_bits, valid):
     hist = torch.zeros(N_WORDS, dtype=torch.float32, device=desc_bits.device)
     hist.index_add_(0, w, valid.to(torch.float32))
     return hist / hist.sum().clamp_min(1e-9)
+
+
+def l1_score(v, W):
+    """DBoW2 L1 similarity of v (N_WORDS,) against the rows of W (K,
+    N_WORDS): s = sum_i min(v_i, w_i) in [0, 1] (= 1 - |v - w|_1 / 2 for
+    L1-normalized vectors)."""
+    return torch.minimum(v[None, :], W).sum(-1)
+
+
+def detect_candidates(query_bow, kf_bows, kf_mask, exclude_mask,
+                      min_score, top_k: int = 8):
+    """`KeyFrameDatabase::DetectLoopCandidates` in dense form: score every
+    keyframe, drop the excluded ones, keep those >= min_score; returns the
+    top-k ids (-1 where the score is not positive) and scores, best first,
+    ties to the lower id."""
+    scores = l1_score(query_bow, kf_bows)
+    ok = kf_mask & ~exclude_mask & (scores >= min_score)
+    vals, idx = torch.sort(torch.where(ok, scores, -1.0), descending=True,
+                           stable=True)
+    k = min(top_k, scores.shape[0])
+    vals, idx = vals[:k], idx[:k]
+    return torch.where(vals > 0, idx, -1), vals

@@ -131,3 +131,89 @@ def test_tracking_and_keyframe_chain_never_wait_for_the_device(use_lines):
             break
     assert slam.state == "OK" and slam.n_kf_host == 3
     assert bool(slam.ms.kf_ln_valid[:3].any()) == use_lines
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("empty", [False, True])
+def test_kernel_forward_and_reverse_at_match_pairs_shape(empty):
+    """K1 as the loop closer's `_match_pairs` calls it: 1024 x 1024
+    keypoints of two keyframes, gates off, valid = the bound keypoints of
+    one and visible = those of the other, then the roles swapped; repeated
+    descriptor rows (ties), and with `empty` a keyframe with no bound
+    keypoint. Both passes match the plain version, and the reverse pass is
+    the column argmin of the masked distance matrix (the lowest index on
+    ties, 0 for an empty column)."""
+    a = _card_inputs(13, 1024, 1024)
+    rng = np.random.default_rng(13)
+    a["d_bits"][10:20] = a["d_bits"][0]
+    a["q_bits"][5] = a["q_bits"][6]
+    a["q_bits"][7] = a["d_bits"][0]
+    bound1 = torch.from_numpy(rng.random(1024) < 0.7).cuda()
+    bound2 = torch.from_numpy(rng.random(1024) < 0.6).cuda()
+    if empty:
+        bound2[:] = False
+    zuv = torch.zeros((1024, 2), device="cuda")
+    zi = torch.zeros(1024, dtype=torch.int32, device="cuda")
+    zr = torch.zeros(1024, device="cuda")
+    side = lambda bits, bound: dict(bits=bits, uv=zuv, oct=zi, bound=bound)
+    k, c = side(a["q_bits"], bound1), side(a["d_bits"], bound2)
+
+    def search(q, d):
+        return _assert_matches_plain(dict(
+            q_bits=q["bits"], q_uv=q["uv"], q_oct=q["oct"],
+            q_valid=q["bound"], d_bits=d["bits"], d_uv=zuv, d_radius=zr,
+            d_level=zi, d_visible=d["bound"]), gated=False)
+
+    _, best, _ = search(k, c)
+    rev, _, _ = search(c, k)
+    D = gated_match.hamming.distance_matrix(a["q_bits"], a["d_bits"])
+    Dm = torch.where(bound1[:, None] & bound2[None, :], D,
+                     gated_match.hamming.INVALID)
+    np.testing.assert_array_equal(rev.cpu().numpy(),
+                                  Dm.argmin(0).cpu().numpy())
+    if empty:
+        assert (best == gated_match.hamming.INVALID).all()
+        assert (rev == 0).all()
+
+
+@pytest.mark.cuda
+def test_loop_closing_and_global_ba_never_wait_for_the_device():
+    """The System with loop closing on (the smoke run's system
+    configuration, a keyframe every frame, a periodic global BA every 4th
+    keyframe) under torch's sync debug mode: tracking, the keyframe chain,
+    the loop closer's per-keyframe detection (its copy to pinned memory
+    and the previous keyframe's readback included), and the global BA's
+    start and rounds; any op that waits for the device raises. Runs until
+    the first global-BA round."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    import dataclasses
+    from chip_smoke import render_system_sequence, system_config
+    from plslam_tpu_torch.models.system import System
+
+    slam = System(dataclasses.replace(
+        system_config(), kf_max_interval=2, kf_min_interval=1,
+        kf_ref_ratio=2.0, periodic_gba_every_kf=4),
+        device=torch.device("cuda", 0))
+
+    def no_sync(fn):
+        def wrapper(*args, **kwargs):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return wrapper
+
+    for obj, attr in ((slam, "_track_update"), (slam, "_process_kf"),
+                      (slam, "_start_gba"), (slam, "_step_gba"),
+                      (slam.loop_closer, "detect")):
+        setattr(obj, attr, no_sync(getattr(obj, attr)))
+    _, frames = render_system_sequence()
+    for i, img in enumerate(frames):
+        slam.track_monocular(img, i / 30.0)
+        if slam._gba is not None and slam._gba["round"] >= 1:
+            break
+    assert slam.state == "OK" and slam.n_kf_host >= 12
+    assert slam._gba is not None and slam._gba["round"] == 1
+    assert slam.loop_closer._pending_detect is not None

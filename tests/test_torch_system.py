@@ -1,16 +1,19 @@
 """The PyTorch port's `System.track_monocular` against the JAX package's
-`System`, with lines on and loop closing off, over the same 28 rendered
-640x480 frames of the system sequence (`make_scene(seed=1)`, orbit) at
-tests/test_e2e.py's small widths: 512 features, 3 levels, 16 keyframes x
-4096 points, a 5 x 1024 BA window, 256 line slots.
+`System`, with lines on, over the same 28 rendered 640x480 frames of the
+system sequence (`make_scene(seed=1)`, orbit) at tests/test_e2e.py's small
+widths: 512 features, 3 levels, 16 keyframes x 4096 points, a 5 x 1024 BA
+window, 256 line slots; once with loop closing and growth off, and once
+with both on, 5 keyframe slots (so the map grows) and the young-map global
+BA up to the 4th keyframe.
 
 Bounds: the same initialization frame; keyframe counts within 1; map
 points within 10%; map lines created within 2; the port's ATE after Sim3
 alignment below 5% of the span (the JAX package's gate); the two
-Sim3-aligned trajectories within 1% of the span of each other. Plus the
-public surface: `SLAMConfig` and `from_yaml` as the JAX package's, the
-trajectory writers, a line mask read from `mask_path` as the JAX package
-reads it, and `NotImplementedError` for every option not ported yet."""
+Sim3-aligned trajectories within 1% of the span of each other; with growth
+on, the same growth events. Plus the public surface: `SLAMConfig` and
+`from_yaml` as the JAX package's, the trajectory writers, a line mask read
+from `mask_path` as the JAX package reads it, relocalization of a LOST
+frame, and `NotImplementedError` for every option not ported yet."""
 import dataclasses
 from pathlib import Path
 
@@ -26,7 +29,15 @@ N_FRAMES = 28
 SMALL = dict(fx=500.0, fy=500.0, cx=320.0, cy=240.0, n_features=512,
              n_levels=3, max_kf=16, max_pt=4096, ba_window=5, ba_points=1024,
              use_lines=True, use_loop_closing=False, grow_map=False)
+LOOP = dict(SMALL, max_kf=5, use_loop_closing=True, grow_map=True,
+            young_gba_until_kf=4)
 ROOT = Path(__file__).resolve().parents[1]
+
+
+def _frames(n=N_FRAMES):
+    scene = synthetic.make_scene(seed=1)
+    Ts = synthetic.trajectory(60, "orbit")[:n]
+    return Ts, [synthetic.render(scene, T) for T in Ts]
 
 
 def _run(slam, frames):
@@ -35,18 +46,26 @@ def _run(slam, frames):
         slam.track_monocular(img, i / 30.0)
         if init is None and slam.state == "OK":
             init = i
+    slam.flush()
     traj = dict((ts, np.asarray(T)) for ts, T in slam.trajectory)
     return init, traj
 
 
+def _both(cfg):
+    Ts, frames = _frames()
+    j = jsys.System(jsys.SLAMConfig(**cfg))
+    t = tsys.System(tsys.SLAMConfig(**cfg), device="cpu")
+    return Ts, (j, *_run(j, frames)), (t, *_run(t, frames))
+
+
 @pytest.fixture(scope="module")
 def runs():
-    scene = synthetic.make_scene(seed=1)
-    Ts = synthetic.trajectory(60, "orbit")[:N_FRAMES]
-    frames = [synthetic.render(scene, T) for T in Ts]
-    j = jsys.System(jsys.SLAMConfig(**SMALL))
-    t = tsys.System(tsys.SLAMConfig(**SMALL), device="cpu")
-    return Ts, (j, *_run(j, frames)), (t, *_run(t, frames))
+    return _both(SMALL)
+
+
+@pytest.fixture(scope="module")
+def runs_loop():
+    return _both(LOOP)
 
 
 def _centers_span(Ts, idx):
@@ -55,6 +74,22 @@ def _centers_span(Ts, idx):
 
 
 def test_system_matches_jax_over_rendered_frames(runs):
+    _assert_within_bounds(runs)
+
+
+def test_system_with_loop_closing_and_growth_matches_jax(runs_loop):
+    """Loop closing (detection on every keyframe), growth and the young-map
+    global BA on: the same bounds and the same growth events."""
+    _, (j, _, _), (t, _, _) = runs_loop
+    _assert_within_bounds(runs_loop)
+    assert t.n_growths == j.n_growths >= 1
+    assert t.map_cfg._asdict() == j.map_cfg._asdict()
+    assert t.map_cfg.max_kf > LOOP["max_kf"]
+    assert t.loop_closer is not None and t.loop_closer.n_loops == 0
+    assert t.ms.kf_T.shape[0] == t.map_cfg.max_kf
+
+
+def _assert_within_bounds(runs):
     Ts, (j, init_j, traj_j), (t, init_t, traj_t) = runs
     assert init_t == init_j is not None
     assert abs(t.n_keyframes() - j.n_keyframes()) <= 1
@@ -156,9 +191,7 @@ def test_mask_path_reaches_detect_lines(tmp_path):
 
 
 @pytest.mark.parametrize("option,value,item", [
-    ("use_loop_closing", True, 13), ("young_gba_until_kf", 4, 13),
-    ("periodic_gba_every_kf", 8, 13), ("sensor", "rgbd", 14),
-    ("async_pipeline", True, 15), ("grow_map", True, 16),
+    ("sensor", "rgbd", 14), ("async_pipeline", True, 15),
     ("subpixel", True, 16)])
 def test_unported_options_raise(option, value, item):
     cfg = tsys.SLAMConfig(**{**SMALL, option: value})
@@ -176,13 +209,51 @@ def test_unported_entry_points_raise(method, args, item):
         getattr(slam, method)(*args)
 
 
-def test_relocalization_past_the_young_map_raises():
-    """LOST with more than 5 keyframes needs relocalization (item 12); with
-    5 or fewer the map resets, as in the JAX package."""
+def test_system_defaults_construct_on_cuda_only():
+    """`System(SLAMConfig())` takes every default (loop closing and growth
+    on); without a device it means cuda, with no fallback to the CPU."""
+    t = tsys.System(tsys.SLAMConfig(), device="cpu")
+    assert t.loop_closer is not None and t.cfg.grow_map
+    _, frames = _frames(2)
+    assert t.track_monocular(frames[0], 0.0) is None
+    t.track_monocular(frames[1], 1 / 30.0)
+    assert t.frame_id == 1 and t.state in (tsys.OK, tsys.NOT_INITIALIZED)
+    if torch.cuda.is_available():
+        assert tsys.System().device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="needs a CUDA device"):
+            tsys.System()
+
+
+def test_relocalization_runs_past_the_young_map():
+    """LOST with 5 or fewer keyframes resets the map, as in the JAX
+    package; past that a LOST frame relocalizes against the map. On the
+    first 12 frames of tests/test_reloc_e2e.py's sequence with its cadence
+    (a keyframe every frame), frame 9 seen again while LOST: its tracked
+    pose within 1e-2, OK again, the local-map anchor set until the next
+    keyframe, and no keyframe within 2 x kf_max_interval frames."""
     slam = tsys.System(tsys.SLAMConfig(**SMALL), device="cpu")
     slam.state, slam.n_kf_host, slam.frame_id = tsys.LOST, 5, 10
     assert slam._relocalize_frame(None, 0.3) is None
     assert slam.state == tsys.NOT_INITIALIZED and slam.stats[-1]["auto_reset"]
-    slam.state, slam.n_kf_host = tsys.LOST, 6
-    with pytest.raises(NotImplementedError, match="item 12$"):
-        slam._relocalize_frame(None, 0.3)
+
+    scene = synthetic.make_scene(seed=2)
+    Ts = synthetic.trajectory(30, "orbit", amplitude=1.0)
+    frames = [synthetic.render(scene, Ts[i]) for i in range(13)]
+    slam = tsys.System(tsys.SLAMConfig(**dict(
+        SMALL, kf_max_interval=2, kf_min_interval=1, kf_ref_ratio=2.0)),
+        device="cpu")
+    for i in range(12):
+        slam.track_monocular(frames[i], i / 30.0)
+    assert slam.state == tsys.OK and slam.n_kf_host > 5
+    T9 = dict(slam.trajectory)[9 / 30.0]
+    slam.state = tsys.LOST
+    slam.frame_id += 1
+    T = slam._relocalize_frame(slam._extract(frames[9])[0], 12 / 30.0)
+    assert slam.state == tsys.OK and slam.stats[-1]["reloc"]
+    assert slam.stats[-1]["inliers"] >= 50
+    assert slam.last_reloc_frame == 12 and slam._anchor_kf is not None
+    np.testing.assert_allclose(T.numpy(), T9, atol=1e-2)
+    slam.track_monocular(frames[12], 13 / 30.0)
+    assert slam.state == tsys.OK and not slam.stats[-1]["kf"]
+    assert slam._anchor_kf is not None
