@@ -60,7 +60,24 @@
    rounds and the merge, and what the Sim3 stages' gates rejected; it runs
    under torch's deterministic algorithms. Then K1 on the first
    relocalization attempt's two calls and the first Sim3 stage's two
-   (forward and reverse pairs), bit for bit and timed as in step 2.
+   (forward and reverse pairs), bit for bit and timed as in step 2;
+8. the RGB-D phase: `System.track_rgbd` over tests/test_depth_sensors.py's
+   RGB-D sequence (18 frames, `make_scene(seed=5)`, orbit of amplitude 1)
+   at the `SLAMConfig` defaults (lines, loop closing and growth on), a
+   monocular config that the first depth frame switches: every frame
+   tracked, OK at the end, > 200 map points, metric ATE < 0.03 m (rigid
+   alignment, no scale), K1's launch count;
+9. the stereo phase: `System.track_stereo` over that file's stereo sequence
+   (14 frames, `make_scene(seed=6)`, orbit of amplitude 0.8, the right view
+   0.3 to the right) at the defaults with `sensor="stereo"`, baseline 0.3
+   and th_depth 10.5: every frame tracked, > 150 points, metric ATE < 0.10
+   m, K1's launch count; then tests/test_depth_sensors.py's depth check on
+   frame 3 through the System's own `stereo_match` (>= 150 valid matches,
+   median relative depth error < 0.6%, p90 < 2%, far-field p90 < 2%), and
+   the device ms of one `stereo_match` call beside its Hamming product's.
+   Both depth phases print per-stage host ms (extraction, the stereo search,
+   tracking, the keyframe chain, local BA), counts, ATE and peak device
+   memory.
 
 Any failed check exits non-zero. The last line is the device JSON; the line
 before it lists the kernels with their launch counts (every phase) and
@@ -95,7 +112,8 @@ RELOC_SEARCHES = ("relocalization ratio search (gates off)",
 SIM3_SEARCHES = ("Sim3 pairs forward (gates off)",
                  "Sim3 pairs reverse (gates off)")
 # the stages run_system times on the host clock
-STAGES = ("extract", "lines", "match", "two_view", "init_ba", "track",
+STAGES = ("extract", "lines", "stereo", "match", "two_view", "init_ba",
+          "track",
           "keyframe", "create_lines", "local_ba", "young_gba", "reloc",
           "detect", "sim3", "correct", "search_fuse", "gba_step", "gba_merge",
           "grow")
@@ -128,6 +146,12 @@ LOOP_PINS = dict(kf_max_interval=3, kf_min_interval=2, desc_pattern="gauss",
                  tri_covis=False)
 LOOP_SMALL = dict(n_features=512, n_levels=3, max_kf=40, max_pt=8192,
                   max_ln=256, n_lf=64, ba_window=5, ba_points=1536)
+# the depth phases: tests/test_depth_sensors.py's sequences and bars
+RGBD_FRAMES, STEREO_FRAMES = 18, 14
+STEREO_BASELINE = 0.3
+DEPTH_BARS = {"rgbd": (200, 0.03), "stereo": (150, 0.10)}  # points, ATE m
+STEREO_DEPTH_FRAME = 3
+STEREO_DEPTH_BARS = dict(n=150, median=0.006, p90=0.02, far_p90=0.02)
 
 
 def fail(msg: str):
@@ -435,9 +459,12 @@ def system_config():
                       p1=0, p2=0, k3=0, use_lines=False)
 
 
-def run_system(frames, cfg=None, record_calls=True, drive=None):
-    """`System.track_monocular` over the frames on cuda:0 at `cfg` (default
-    `system_config()`). Each stage (extraction, line detection inside it,
+def run_system(frames, cfg=None, record_calls=True, drive=None,
+               track="track_monocular"):
+    """`System.track_monocular` (or the entry point `track`, each frame a
+    tuple of its image arguments) over the frames on cuda:0 at `cfg`
+    (default `system_config()`). Each stage (extraction, line detection
+    inside it, the stereo search,
     initialization match and two-view solve, tracking, the keyframe chain
     and the line triangulations and local BAs inside it, the local BA after
     initialization, relocalization, and with loop closing its detection,
@@ -487,6 +514,7 @@ def run_system(frames, cfg=None, record_calls=True, drive=None):
         return wrapper
 
     for attr, name in (("_extract", "extract"), ("_detect_lines", "lines"),
+                       ("_stereo_match", "stereo"),
                        ("_match_frames", "match"),
                        ("_init_two_view", "two_view"),
                        ("_track_update", "track"),
@@ -527,7 +555,8 @@ def run_system(frames, cfg=None, record_calls=True, drive=None):
         capture = record_calls and not real_calls and slam.n_kf_host > 2
         recorder.on = record_calls and (init is None or capture)
         recorder.calls = []
-        slam.track_monocular(frames[i], i / 30.0)
+        args = frames[i] if isinstance(frames[i], tuple) else (frames[i],)
+        getattr(slam, track)(*args, i / 30.0)
         recorder.on = False
         states.append(slam.state)
         if init is None and slam.state == "OK":
@@ -875,6 +904,122 @@ def check_loop(label, Ts, out) -> list:
     return loop_failures(m)
 
 
+def render_rgbd_sequence(n_frames=RGBD_FRAMES):
+    """tests/test_depth_sensors.py's RGB-D sequence: `make_scene(seed=5)`
+    along `trajectory(18, "orbit", amplitude=1.0)`, 640x480, fx = fy = 500;
+    each frame (image, metric depth)."""
+    from plslam_tpu_torch.datasets import synthetic
+    scene = synthetic.make_scene(seed=5)
+    Ts = synthetic.trajectory(n_frames, "orbit", amplitude=1.0)
+    return Ts, [synthetic.render_rgbd(scene, T) for T in Ts]
+
+
+def render_stereo_sequence(n_frames=STEREO_FRAMES):
+    """tests/test_depth_sensors.py's stereo sequence: `make_scene(seed=6)`
+    along `trajectory(14, "orbit", amplitude=0.8)`, each frame (left,
+    right) with the right camera STEREO_BASELINE to the right; and the
+    left depth of frame STEREO_DEPTH_FRAME."""
+    from plslam_tpu_torch.datasets import synthetic
+    scene = synthetic.make_scene(seed=6)
+    Ts = synthetic.trajectory(n_frames, "orbit", amplitude=0.8)
+    T_rl = np.eye(4, dtype=np.float32)
+    T_rl[0, 3] = -STEREO_BASELINE
+    frames = [(synthetic.render(scene, T), synthetic.render(scene, T_rl @ T))
+              for T in Ts]
+    return Ts, frames, synthetic.render_rgbd(scene,
+                                             Ts[STEREO_DEPTH_FRAME])[1]
+
+
+def depth_config(kind: str):
+    """The depth phases' `SLAMConfig`: the defaults (1024 features, 8
+    levels, 48 x 12288 x 1024, lines, loop closing and growth on) with the
+    renderer's camera; RGB-D on the default monocular config (the first
+    depth frame switches it), stereo with `sensor="stereo"`, baseline 0.3
+    and th_depth 35 x baseline (tests/test_depth_sensors.py's)."""
+    from plslam_tpu_torch.models.system import SLAMConfig
+    extra = {} if kind == "rgbd" else dict(
+        sensor="stereo", baseline=STEREO_BASELINE,
+        th_depth=35 * STEREO_BASELINE)
+    return SLAMConfig(fx=FX, fy=FX, cx=WIDTH / 2, cy=HEIGHT / 2, k1=0, k2=0,
+                      p1=0, p2=0, k3=0, **extra)
+
+
+def check_depth(kind, Ts, out):
+    """A depth phase: tests/test_depth_sensors.py's bars (every frame
+    tracked, OK at the end, the point floor, metric ATE with a rigid
+    alignment) and K1's launch count; prints the stage times and counts."""
+    from plslam_tpu_torch.datasets import synthetic
+    slam, idx = out["slam"], out["idx"]
+    print_stage_times(kind, out["times"])
+    ate = synthetic.ate_rmse(out["poses"], Ts[idx], align_scale=False) \
+        if len(idx) >= 3 else float("nan")
+    not_ok = [i for i, s in enumerate(out["states"]) if s != "OK"]
+    print(f"{kind}: init frame {out['init']}, {len(out['times']['track'])} "
+          f"frames tracked, {len(idx)} poses, {slam.n_keyframes()} keyframes, "
+          f"{slam.n_map_points()} map points, {int(slam.ms.n_ln)} map lines, "
+          f"metric ATE {ate:.4f} m, state {slam.state}, sensor "
+          f"{slam.cfg.sensor}, loops {slam.loop_closer.n_loops}, global BAs "
+          f"{slam.n_gba_done}, growth events {slam.n_growths}, peak device "
+          f"memory {out['peak'] / 2**20:.1f} MiB")
+    check_launches(kind, out)
+    min_points, max_ate = DEPTH_BARS[kind]
+    bad = []
+    if out["init"] != 0 or not_ok or len(idx) != len(Ts):
+        bad.append(f"init frame {out['init']}, frames not OK {not_ok}, "
+                   f"{len(idx)} of {len(Ts)} poses")
+    if slam.state != "OK":
+        bad.append(f"state {slam.state} at the end")
+    if slam.n_map_points() <= min_points:
+        bad.append(f"{slam.n_map_points()} map points (<= {min_points})")
+    if not ate < max_ate:
+        bad.append(f"metric ATE {ate:.4f} m (>= {max_ate})")
+    if bad:
+        fail(f"{kind}: " + "; ".join(bad))
+    return ate
+
+
+def check_stereo_depth(slam, frame, dep_gt):
+    """tests/test_depth_sensors.py's depth check on one stereo pair through
+    the System's own extraction and `stereo_match` (at the System's
+    widths); then the device ms of one `stereo_match` call and of its
+    Hamming product alone (`hamming.distance_matrix`)."""
+    from functools import partial
+    from plslam_tpu_torch.ops import hamming, stereo
+    im_l, im_r = (slam._image(im) for im in frame)
+    fl, fr = slam.extractor(im_l), slam.extractor(im_r)
+    match = partial(stereo.stereo_match, fx=float(slam.cfg.fx),
+                    baseline=slam.cfg.baseline,
+                    scale_factors=slam.scale_factors)
+    depth, _, ok = match(fl, fr, im_l, im_r)
+    ok = ok.cpu().numpy()
+    uv, d = fl.uv.cpu().numpy()[ok], depth.cpu().numpy()[ok]
+    d_gt = dep_gt[np.clip(np.round(uv[:, 1]).astype(int), 0, HEIGHT - 1),
+                  np.clip(np.round(uv[:, 0]).astype(int), 0, WIDTH - 1)]
+    valid = d_gt > 0
+    rel = np.abs(d[valid] - d_gt[valid]) / d_gt[valid]
+    far = d_gt[valid] > np.median(d_gt[valid])
+    got = dict(n=int(valid.sum()), median=float(np.median(rel)),
+               p90=float(np.percentile(rel, 90)),
+               far_p90=float(np.percentile(rel[far], 90)))
+    # one call per batch: a call queues ~250 small kernels, and the host
+    # blocks once ~1000 launches are pending behind the spin kernel
+    ms = cuda_ms(lambda: match(fl, fr, im_l, im_r), batch=1)
+    ms_ham = cuda_ms(lambda: hamming.distance_matrix(fl.desc, fr.desc))
+    print(f"stereo depth, frame {STEREO_DEPTH_FRAME}: {got['n']} valid "
+          f"matches of {fl.valid.sum().item()} keypoints, relative depth "
+          f"error median {100 * got['median']:.3f}%, p90 "
+          f"{100 * got['p90']:.3f}%, far-field p90 "
+          f"{100 * got['far_p90']:.3f}%; stereo_match "
+          f"{ms:.4f} ms device per call, its Hamming product "
+          f"{fl.desc.shape[0]} x {fr.desc.shape[0]} {ms_ham:.4f} ms")
+    b = STEREO_DEPTH_BARS
+    if not (got["n"] >= b["n"] and got["median"] < b["median"]
+            and got["p90"] < b["p90"] and got["far_p90"] < b["far_p90"]):
+        fail(f"stereo depth, frame {STEREO_DEPTH_FRAME}: {got} misses the "
+             f"bars {b}")
+    return dict(got, ms=ms, ms_hamming=ms_ham)
+
+
 def check_lines_small(Ts, on, off):
     """(b): the small-width configuration with lines on: no LOST frame
     after initialization, a valid map line at the end and a line inlier on
@@ -1087,6 +1232,26 @@ def main() -> int:
     print(f"reloc: {RELOC_FRAMES} frames in {time.perf_counter() - t0:.1f} s")
     check_reloc(rl_out, reloc)
 
+    # the depth phases: tests/test_depth_sensors.py's RGB-D and stereo runs
+    # at the defaults
+    depth_out = {}
+    for kind, render in (("rgbd", render_rgbd_sequence),
+                         ("stereo", render_stereo_sequence)):
+        t0 = time.perf_counter()
+        Ts_d, frames_d, *dep = render()
+        print(f"rendered the {len(Ts_d)}-frame {kind} sequence in "
+              f"{time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        depth_out[kind] = run_system(frames_d, depth_config(kind),
+                                     record_calls=False,
+                                     track=f"track_{kind}")
+        print(f"{kind}: {len(Ts_d)} frames in "
+              f"{time.perf_counter() - t0:.1f} s")
+        check_depth(kind, Ts_d, depth_out[kind])
+        if kind == "stereo":
+            check_stereo_depth(depth_out[kind]["slam"],
+                               frames_d[STEREO_DEPTH_FRAME], dep[0])
+
     # the loop phase: tests/test_loop_closure_e2e.py's circuit at its widths
     # (a) and at the defaults (b)
     t0 = time.perf_counter()
@@ -1127,13 +1292,16 @@ def main() -> int:
     if loop_bad:
         fail("; ".join(loop_bad))
     new_launches = rl_out["launches"] + sum(o["launches"]
-                                            for o in loops.values())
+                                            for o in loops.values()) \
+        + sum(o["launches"] for o in depth_out.values())
     print(f"K1 launches: slice {out['launches']}, system "
           f"{sys_out['launches']}, lines (a) {lines_out['launches']}, lines "
           f"(b) {small[True]['launches']} / {small[False]['launches']}, "
           f"reloc {rl_out['launches']}, loop (a) "
           f"{loops['loop (a)']['launches']}, loop (b) "
-          f"{loops['loop (b)']['launches']}")
+          f"{loops['loop (b)']['launches']}, rgbd "
+          f"{depth_out['rgbd']['launches']}, stereo "
+          f"{depth_out['stereo']['launches']}")
 
     head = timing[(1024, 12288, True)]
     print(f"card: {card_line()}")

@@ -1,8 +1,8 @@
 """Keyframe middle end: insertion, triangulation of new landmarks, local BA
 and culling (the LocalMapping stage) as in-place updates of `MapState`.
 
-Port of the point and line parts of `plslam_tpu/models/mapping.py` (the
-depth-sensor, loop and global-BA parts wait for later items). Whole keyframes
+Port of `plslam_tpu/models/mapping.py`: points and lines, depth-sensor
+keyframes, loop fusion and the global BA's merge. Whole keyframes
 are matched at once (Hamming matrix + epipolar, projection or direction
 gates), every candidate triangulates at once (points by DLT, lines by
 ray-plane intersection), and new landmarks take slots by prefix sum. Nothing here waits for the device: where the JAX package
@@ -28,7 +28,7 @@ import torch
 from ..geometry import camera, se3, triangulation as tri
 from ..mapstate import state as mstate
 from ..mapstate.state import MapState
-from ..ops import hamming
+from ..ops import hamming, stereo
 from ..ops.extract import PointFeatures
 from ..ops.lines import LineFeatures, _angle_diff
 from ..optim import local_ba
@@ -75,7 +75,8 @@ def _write_slots(ms: MapState, slots, a, values: dict):
 
 def insert_keyframe(cam, ms: MapState, feats: PointFeatures, T, matched_pt,
                     frame_id, scale_factors, lfeats: LineFeatures = None,
-                    matched_ln=None, desc_majority: bool = False) -> MapState:
+                    matched_ln=None, desc_majority: bool = False,
+                    kp_depth=None, bf: float = 0.0) -> MapState:
     """Promote the current frame to keyframe `ms.n_kf` (`CreateNewKeyFrame`
     + `ProcessNewKeyFrame`), in place: write its keypoints and BoW
     signature (and its line segments, with `lfeats`), bind the tracked
@@ -85,8 +86,10 @@ def insert_keyframe(cam, ms: MapState, feats: PointFeatures, T, matched_pt,
     the bitwise strict majority of the observed descriptors once a point
     has 3), lines their descriptors (latest observation). `matched_pt` and
     `matched_ln` must bind each landmark at most once, as tracking's
-    deduplicated matches do. A full keyframe array drops the write, as the
-    JAX package's scatter does."""
+    deduplicated matches do. With a depth sensor (`kp_depth` (N,) and `bf`
+    = fx x baseline > 0), each keypoint's right-image column u - bf / depth
+    (-1 without a depth) goes into `kf_ur` for BA's stereo edges. A full
+    keyframe array drops the write, as the JAX package's scatter does."""
     del cam, scale_factors  # kept for the JAX signature
     device = T.device
     k = ms.n_kf
@@ -99,6 +102,8 @@ def insert_keyframe(cam, ms: MapState, feats: PointFeatures, T, matched_pt,
             ("kf_angle", feats.angle), ("kf_desc", feats.desc),
             ("kf_kp_valid", feats.valid), ("kf_pt_idx", matched_pt),
             ("kf_bow", bow.bow_vector(feats.desc, feats.valid))]
+    if kp_depth is not None and bf > 0:
+        rows.append(("kf_ur", stereo.right_columns(feats, kp_depth, bf)))
     if lfeats is not None:
         if matched_ln is None:
             matched_ln = torch.full(lfeats.valid.shape, -1, dtype=torch.int32,
@@ -791,8 +796,8 @@ def _grid(base, slot, has, values):
 
 
 def ba_select(ms: MapState, sigma2_levels, window: int = 8,
-              p_ba: int = 4096, l_ba: int = 512,
-              rank_by_obs: bool = False) -> BASelection:
+              p_ba: int = 4096, l_ba: int = 512, rank_by_obs: bool = False,
+              use_stereo: bool = False, bf: float = 0.0) -> BASelection:
     """The last `window` keyframes and the landmarks they observe as a
     fixed-shape `BAProblem` (the window half of
     `LocalBundleAdjustmentWithLine`). The two oldest valid window slots
@@ -800,7 +805,9 @@ def ba_select(ms: MapState, sigma2_levels, window: int = 8,
     binds, the newest points win (local BA: they need the refinement most),
     or with `rank_by_obs` the most observed ones, newer ids breaking ties
     in groups of 8 (global BA after a loop: the fused cross-loop landmarks
-    are old ids and carry the coupling)."""
+    are old ids and carry the coupling). With `use_stereo`, the window's
+    `kf_ur` columns go into the problem's `obs_ur` grid (-1 where a cell
+    has no stereo observation), for 3-dof stereo edges with `bf`."""
     p_ba = min(p_ba, ms.pt_xyz.shape[0])
     l_ba = min(l_ba, ms.ln_valid.shape[0])
     K_all = ms.kf_T.shape[0]
@@ -829,6 +836,10 @@ def ba_select(ms: MapState, sigma2_levels, window: int = 8,
     obs_s2 = _grid(torch.ones((W, p_ba), device=dev), slot_safe, has,
                    sigma2_levels[ms.kf_octave[ids_c].long()])
     obs_mask = mstate.row_bitmap(torch.where(has, slot_safe, -1), p_ba)
+    # accepted lanes only: the JAX package's lanes without a slot write -1
+    # over BA slot 0's column (ROADMAP Queue 3)
+    obs_ur = _grid(torch.full((W, p_ba), -1.0, device=dev), slot_safe, has,
+                   ms.kf_ur[ids_c]) if use_stereo else None
 
     win_ln_idx = ms.kf_ln_idx[ids_c]                                 # (W, Mf)
     lsel, lsel_ok, l_slot = _select(win_ln_idx, (win_ln_idx >= 0)
@@ -845,7 +856,7 @@ def ba_select(ms: MapState, sigma2_levels, window: int = 8,
         obs_mask=obs_mask, obs_sigma2=obs_s2, ln_xyz=ms.ln_xyz[lsel],
         ln_mask=lsel_ok, ln_obs_l2d=ln_obs_l2d, ln_obs_mask=ln_obs_mask,
         # base 0.5 (`src/Optimizer.cc:1909`) x triangulation conditioning
-        ln_info=0.5 * ms.ln_cond[lsel])
+        ln_info=0.5 * ms.ln_cond[lsel], obs_ur=obs_ur, bf=bf)
     return BASelection(prob, ids_c, kf_mask, sel, sel_ok, lsel, lsel_ok,
                        slot_safe, has, l_slot_safe, l_has, win_pt_idx,
                        win_ln_idx)
@@ -893,13 +904,16 @@ def ba_writeback(ms: MapState, s: BASelection, res) -> MapState:
 
 def run_local_ba(cam, ms: MapState, sigma2_levels, window: int = 8,
                  p_ba: int = 4096, l_ba: int = 512, iters_a: int = 5,
-                 iters_b: int = 10, rank_by_obs: bool = False) -> MapState:
+                 iters_b: int = 10, rank_by_obs: bool = False,
+                 use_stereo: bool = False, bf: float = 0.0) -> MapState:
     """Local BA over the last `window` keyframes
     (`LocalBundleAdjustmentWithLine`), in place: select, solve, write back,
     erase the outlier observations. With a window spanning the map and
-    `rank_by_obs`, this is the global BA (`GlobalBundleAdjustemnt`)."""
+    `rank_by_obs`, this is the global BA (`GlobalBundleAdjustemnt`); with
+    `use_stereo`, the stored right-image columns add stereo edges."""
     selection = ba_select(ms, sigma2_levels, window=window, p_ba=p_ba,
-                          l_ba=l_ba, rank_by_obs=rank_by_obs)
+                          l_ba=l_ba, rank_by_obs=rank_by_obs,
+                          use_stereo=use_stereo, bf=bf)
     res = local_ba.bundle_adjust(selection.prob, cam, iters_a=iters_a,
                                  iters_b=iters_b)
     return ba_writeback(ms, selection, res)
@@ -977,9 +991,12 @@ def process_keyframe(cam, ms: MapState, feats, lfeats, T, matched_pt,
                      sin_reverse_n: int = 2) -> MapState:
     """The keyframe chain, in place: insert -> triangulate new points
     against up to `tri_covis_k` + 1 partners -> (triangulate new lines
-    against 3 partners -> fuse duplicate lines) -> fuse duplicate points ->
-    search in neighbours -> dedup rows -> local BA (4 + 8 iterations) ->
-    cull points and lines -> cull keyframes when `do_kf_cull`.
+    against 3 partners -> fuse duplicate lines) -> (with `use_depth`, points
+    from the keypoint depths `kp_depth` below `max_depth`) -> fuse duplicate
+    points -> search in neighbours -> dedup rows -> local BA (4 + 8
+    iterations; with `use_depth` and `bf` > 0 the keyframes' right-image
+    columns add stereo edges) -> cull points and lines -> cull keyframes
+    when `do_kf_cull`.
 
     Partners: with `tri_covis`, the top covisible keyframes, deepest
     baseline first, each falling back to its rung of the 2^i-back ladder
@@ -989,15 +1006,12 @@ def process_keyframe(cam, ms: MapState, feats, lfeats, T, matched_pt,
     and 3 keyframes back, each with 3-view support in the keyframe behind
     it where that exists, and duplicate lines fuse. A partner that does not
     exist masks its creation instead of branching, so nothing waits for the
-    device. Depth sensors (`use_depth`) are not ported yet."""
-    del kp_depth, max_depth, bf   # depth only
-    if use_depth:
-        raise NotImplementedError("depth-sensor keyframes are not ported "
-                                  "yet: ROADMAP Queue 1 item 14")
+    device; `use_depth` is a Python bool."""
     k_new = ms.n_kf.to(torch.long)         # a copy: insert bumps n_kf
     insert_keyframe(cam, ms, feats, T, matched_pt, frame_id, scale_factors,
                     lfeats=lfeats, matched_ln=matched_ln,
-                    desc_majority=desc_majority)
+                    desc_majority=desc_majority,
+                    kp_depth=kp_depth if use_depth else None, bf=bf)
     triangulate = lambda kr, enabled: create_new_points(
         cam, ms, k_new, kr, sigma2_levels, scale_factors, enabled=enabled)
     if tri_covis:
@@ -1027,6 +1041,9 @@ def process_keyframe(cam, ms: MapState, feats, lfeats, T, matched_pt,
                                                  k_new - back - 1, -1),
                              enabled=k_new >= back)
         fuse_duplicate_lines(ms)
+    if use_depth:
+        create_points_from_depth(cam, ms, k_new, kp_depth, scale_factors,
+                                 max_depth)
     fuse_duplicate_points(ms)
     search_in_neighbors(cam, ms, k_new, covis_targets=sin_covis,
                         whole_map=sin_whole_map, n_reverse=sin_reverse_n)
@@ -1035,6 +1052,7 @@ def process_keyframe(cam, ms: MapState, feats, lfeats, T, matched_pt,
     dedup_kf_point_rows(cam, ms)
     ms.pt_n_obs.copy_(_refresh_n_obs(ms))
     run_local_ba(cam, ms, sigma2_levels, window=window, p_ba=p_ba,
-                 l_ba=l_ba, iters_a=4, iters_b=8)
+                 l_ba=l_ba, iters_a=4, iters_b=8,
+                 use_stereo=bool(use_depth) and bf > 0, bf=bf)
     cull_points(ms, k_new)
     return cull_keyframes(ms, k_new, enabled=do_kf_cull)

@@ -1,21 +1,34 @@
-"""System facade: `System(cfg).track_monocular(img, t)`.
+"""System facade: `System(cfg).track_monocular(img, t)`,
+`track_rgbd(img, depth, t)` and `track_stereo(img_l, img_r, t)`.
 
-Port of the monocular path of `plslam_tpu/models/system.py`, points and
-lines. The host loop owns the `MapState` and calls the ported stages in the
-JAX package's order: extraction (points, and with `use_lines` line segments)
--> two-view initialization (`match_frames`, H/F RANSAC, initial map with its
-lines + local BA) -> per-frame `track_local_map` (and one round of an
-in-flight global BA) -> keyframe decision (with `grow_map`, capacity growth
-first) -> the keyframe chain (`mapping.process_keyframe`), synchronously at
-keyframe creation -> loop closing (`models/loop_closing`), which schedules
-the asynchronous global BA on a closure. A LOST frame relocalizes
-(`tracking.relocalize`) once the map has more than 5 keyframes, and resets
-the map below that.
+Port of `plslam_tpu/models/system.py`, points and lines, for the three
+sensors. The host loop owns the `MapState` and calls the ported stages in
+the JAX package's order: extraction (points, and with `use_lines` line
+segments) -> initialization (monocular: `match_frames`, H/F RANSAC, initial
+map with its lines + local BA; depth sensors: one keyframe at the origin
+with landmarks from the keypoint depths) -> per-frame `track_local_map`
+(with a depth sensor on 3-dof stereo edges; and one round of an in-flight
+global BA) -> keyframe decision (with `grow_map`, capacity growth first) ->
+the keyframe chain (`mapping.process_keyframe`, with a depth sensor also
+creating landmarks from depth and adding stereo edges to local BA),
+synchronously at keyframe creation -> loop closing (`models/loop_closing`;
+Sim3s of fixed scale with a depth sensor), which schedules the asynchronous
+global BA on a closure. A LOST frame relocalizes (`tracking.relocalize`)
+once the map has more than 5 keyframes, and resets the map below that.
+
+Keypoint depth comes from the depth image (`stereo.depth_at`, RGB-D) or
+from matching the rectified right image (`stereo.stereo_match`, stereo). A
+depth frame given to a System configured for another sensor switches it to
+that sensor, as the JAX package's `_ensure_depth_sensor` does. Unlike the
+JAX package, whose global BA is monocular unless the sensor was switched
+this way and stays monocular after map growth, the port's global BA has
+stereo edges whenever the System has a depth sensor (ROADMAP Queue 3).
 
 Host reads: a tracked frame reads back one 6-scalar row (`_resolve_pending`);
 an initialization attempt reads its feature and match counts, its success
 flag and, once it succeeds, the triangulated points; a relocalization
-attempt reads its verdict; loop detection reads its candidates one keyframe
+attempt reads its verdict; a depth-sensor initialization reads its valid
+keypoint and landmark counts; loop detection reads its candidates one keyframe
 late from pinned memory, and a consistent candidate's Sim3 stage and
 correction read their counts and the covisibility. A frame given as a host
 array is copied from pageable memory, which also waits for the device's
@@ -37,7 +50,7 @@ from ..geometry import camera, se3, triangulation
 from ..mapstate import state as mstate
 from ..models import mapping, tracking
 from ..models.loop_closing import LoopClosing
-from ..ops import extract, lines
+from ..ops import extract, lines, stereo
 from ..optim import local_ba
 from ..solvers import twoview
 
@@ -170,7 +183,6 @@ LOST = "LOST"
 
 # options whose modules are not ported yet: (test, what, ROADMAP item)
 _UNPORTED = (
-    (lambda c: c.sensor != "mono", "sensor != 'mono'", 14),
     (lambda c: c.async_pipeline, "async_pipeline", 15),
     (lambda c: c.subpixel, "subpixel (keypoint refinement)", 16),
 )
@@ -182,12 +194,12 @@ def _not_ported(what: str, item: int):
 
 
 class System:
-    """Monocular point-and-line SLAM on one device, `cuda` unless `device`
-    names another (the CPU runs the kernels' plain versions). Public
-    surface as the JAX package's: `track_monocular`, `trajectory`, `poses`,
-    the TUM/KITTI trajectory writers, `n_map_points`, `n_keyframes`,
-    `reset`, `flush`, `finish_gba`, `run_global_ba`, `shutdown` and the
-    localization-mode toggles."""
+    """Point-and-line SLAM on one device, `cuda` unless `device` names
+    another (the CPU runs the kernels' plain versions). Public surface as
+    the JAX package's: `track_monocular`, `track_rgbd`, `track_stereo`,
+    `trajectory`, `poses`, the TUM/KITTI trajectory writers,
+    `n_map_points`, `n_keyframes`, `reset`, `flush`, `finish_gba`,
+    `run_global_ba`, `shutdown` and the localization-mode toggles."""
 
     def __init__(self, config: Optional[SLAMConfig] = None, device=None):
         config = SLAMConfig() if config is None else config
@@ -200,6 +212,8 @@ class System:
             raise RuntimeError("System needs a CUDA device; pass "
                                "device='cpu' for the kernels' plain versions")
         c = config
+        # fx * baseline (the reference's mbf): the stereo edges' scale
+        self._bf = float(c.fx) * float(c.baseline)
         self.cam = camera.Camera.create(c.fx, c.fy, c.cx, c.cy, c.k1, c.k2,
                                         c.p1, c.p2, c.k3, c.width, c.height)
         self.ext_cfg = extract.ExtractorConfig(
@@ -246,7 +260,8 @@ class System:
         self._init_two_view = partial(twoview.initialize_two_view,
                                       K=camera.intrinsics(cam, self.device))
         self._insert_kf = partial(mapping.insert_keyframe, cam,
-                                  scale_factors=self.scale_factors)
+                                  scale_factors=self.scale_factors,
+                                  bf=self._bf)
         self._create_lines = partial(mapping.create_new_lines, cam)
         self._local_ba = partial(mapping.run_local_ba, cam,
                                  sigma2_levels=self.sigma2,
@@ -256,7 +271,7 @@ class System:
             mapping.process_keyframe, cam, sigma2_levels=self.sigma2,
             scale_factors=self.scale_factors, window=c.ba_window,
             p_ba=c.ba_points, l_ba=c.ba_lines, max_depth=c.th_depth,
-            use_depth=False, desc_majority=c.desc_majority,
+            bf=self._bf, desc_majority=c.desc_majority,
             tri_covis=c.tri_covis, tri_covis_k=c.tri_covis_k,
             sin_covis=c.sin_covis, sin_whole_map=c.sin_whole_map,
             sin_reverse_n=c.sin_reverse_n)
@@ -264,6 +279,13 @@ class System:
             tracking.relocalize, cam, sigma2_levels=self.sigma2,
             scale_factors=self.scale_factors, n_levels=c.n_levels,
             scale=c.scale_factor, min_inliers=c.reloc_min_inliers)
+        self._depth_at = stereo.depth_at
+        self._stereo_match = partial(stereo.stereo_match, fx=float(c.fx),
+                                     baseline=c.baseline,
+                                     scale_factors=self.scale_factors)
+        self._create_depth_points = partial(
+            mapping.create_points_from_depth, cam,
+            scale_factors=self.scale_factors, max_depth=c.th_depth)
         # a depth sensor observes scale: Sim3s keep s = 1 (`bFixScale`)
         self.loop_closer = LoopClosing(
             cam, self.map_cfg, self.sigma2, fix_scale=c.sensor != "mono",
@@ -291,6 +313,9 @@ class System:
         self._gba = None           # the in-flight global BA
         self.n_gba_done = 0
         self._init_feats = self._init_lfeats = None
+        # the current frame's keypoint depths and right-image columns (a
+        # depth sensor's frame), else None
+        self._kp_depth = self._kp_ur = None
         self._init_frame_id = -1
         self._init_ts = None
         # per-frame poses relative to their reference keyframe, re-anchored
@@ -301,16 +326,22 @@ class System:
         self.timings: list[float] = []
         self.stats: list[dict] = []
 
-    def _extract(self, img):
-        """(point features with undistorted keypoints, line features with
-        undistorted endpoints or None) of one grayscale frame (uint8 on the
-        wire, float32 compute)."""
+    def _image(self, img):
+        """A grayscale frame (numpy or tensor, uint8 on the wire) as a
+        float32 tensor on the device."""
         if not torch.is_tensor(img):
             img = torch.from_numpy(np.asarray(img).astype(np.uint8))
-        img = img.to(self.device).to(torch.float32)
+        return img.to(self.device).to(torch.float32)
+
+    def _extract(self, img, with_lines: bool = True):
+        """(point features with undistorted keypoints, line features with
+        undistorted endpoints or None) of one grayscale frame; lines only
+        with `use_lines` and `with_lines`."""
+        img = self._image(img)
         f = self.extractor(img)
         f = f._replace(uv_un=camera.undistort_pixels(self.cam, f.uv))
-        return f, self._detect_lines(img) if self.cfg.use_lines else None
+        return f, self._detect_lines(img) if self.cfg.use_lines \
+            and with_lines else None
 
     def _detect_lines(self, img):
         """Line features of a float32 frame, endpoints undistorted and the
@@ -342,11 +373,83 @@ class System:
     def track_synced(self, img, timestamp: float):
         raise _not_ported("track_synced", 15)
 
-    def track_stereo(self, img_left, img_right, timestamp: float):
-        raise _not_ported("track_stereo", 14)
-
     def track_rgbd(self, img, depth, timestamp: float):
-        raise _not_ported("track_rgbd", 14)
+        """`System::TrackRGBD`: one grayscale frame and its registered depth
+        image (H, W), in the units of `depth_map_factor` (numpy or tensor).
+        Metric depth initializes on the first frame with enough keypoints
+        and creates landmarks directly. Returns the (4,4) pose Tcw on the
+        System's device, or None while not initialized."""
+        t0 = time.perf_counter()
+        self.frame_id += 1
+        self._ensure_depth_sensor("rgbd")
+        if not torch.is_tensor(depth):
+            depth = torch.from_numpy(np.asarray(depth, dtype=np.float32))
+        depth = depth.to(self.device).to(torch.float32) \
+            / self.cfg.depth_map_factor
+        feats, lfeats = self._extract(img)
+        self._set_depth(feats, self._depth_at(depth, feats.uv))
+        T = self._track_depth_frame(feats, lfeats, timestamp)
+        self.timings.append(time.perf_counter() - t0)
+        return T
+
+    def track_stereo(self, img_left, img_right, timestamp: float):
+        """`System::TrackStereo`: a rectified grayscale pair. Keypoint depth
+        comes from `stereo.stereo_match` against the right image's
+        keypoints (points only: the JAX package's right-image lines are
+        discarded unused). Returns as `track_rgbd`."""
+        t0 = time.perf_counter()
+        self.frame_id += 1
+        self._ensure_depth_sensor("stereo")
+        im_l, im_r = self._image(img_left), self._image(img_right)
+        feats, lfeats = self._extract(im_l)
+        feats_r, _ = self._extract(im_r, with_lines=False)
+        d, _, ok = self._stereo_match(feats, feats_r, im_l, im_r)
+        self._set_depth(feats, torch.where(ok, d, -1.0))
+        T = self._track_depth_frame(feats, lfeats, timestamp)
+        self.timings.append(time.perf_counter() - t0)
+        return T
+
+    def _set_depth(self, feats, kp_depth):
+        """The frame's keypoint depths and their right-image columns."""
+        self._kp_depth = kp_depth
+        self._kp_ur = stereo.right_columns(feats, kp_depth, self._bf)
+
+    def _track_depth_frame(self, feats, lfeats, timestamp):
+        if self.state == NOT_INITIALIZED:
+            return self._initialize_with_depth(feats, lfeats, timestamp)
+        return self._track_frame(feats, lfeats, timestamp)
+
+    def _ensure_depth_sensor(self, sensor: str):
+        """A depth frame given to a System configured for another sensor
+        switches it to `sensor`: the loop closer's Sim3s keep s = 1
+        (`bFixScale`), and the global BA gets stereo edges
+        (`_gba_kwargs`)."""
+        if self.cfg.sensor != sensor:
+            self.cfg.sensor = sensor
+            if self.loop_closer is not None:
+                self.loop_closer.fix_scale = True
+
+    def _initialize_with_depth(self, feats, lfeats, timestamp):
+        """`Tracking::StereoInitialization`: with >= 300 valid keypoints,
+        one keyframe at the origin and landmarks straight from depth."""
+        if int(feats.valid.sum()) < 300:
+            return None
+        eye = torch.eye(4, device=self.device)
+        ms = self.ms
+        self._insert_kf(ms, feats, eye,
+                        torch.full((self.map_cfg.n_kp,), -1,
+                                   dtype=torch.int32, device=self.device),
+                        self.frame_id, lfeats=lfeats,
+                        kp_depth=self._kp_depth)
+        self._create_depth_points(ms, 0, self._kp_depth)
+        self.n_kf_host = 1
+        self.state = OK
+        self.T_last, self.velocity = eye, eye
+        self.last_kf_frame = self.frame_id
+        self.ref_kf_matches = int((ms.kf_pt_idx[0] >= 0).sum())
+        self.kf_timestamps = [timestamp]
+        self._log_frame(timestamp, np.eye(4, dtype=np.float32), 0)
+        return eye.clone()
 
     # ------------------------------------------------------------------
     def _set_anchor(self, feats, lfeats, timestamp):
@@ -434,10 +537,13 @@ class System:
     def _track_frame(self, feats, lfeats, timestamp):
         if self.state == LOST:
             return self._relocalize_frame(feats, timestamp)
+        stereo_kw = {} if self._kp_ur is None else dict(kp_ur=self._kp_ur,
+                                                        bf=self._bf)
         res, self.ms = self._track_update(self.ms, feats, self.T_last,
                                           lfeats=lfeats,
                                           velocity=self.velocity,
-                                          anchor_kf=self._anchor_arg())
+                                          anchor_kf=self._anchor_arg(),
+                                          **stereo_kw)
         self._step_gba()
         self.velocity = res.velocity
         self.T_last = res.T
@@ -506,10 +612,14 @@ class System:
     # tracked frame, queued behind the frame's work; a new closure aborts it.
     def _gba_kwargs(self):
         """The global-BA window and budgets: the map's capacities, capped
-        (the dense reduced camera system grows as K^2 P)."""
+        (the dense reduced camera system grows as K^2 P); stereo edges
+        whenever the System has a depth sensor, whether the config said so
+        or a depth frame switched it, and after growth too."""
         c = self.map_cfg
         return dict(window=min(c.max_kf, 128), p_ba=min(c.max_pt, 16384),
-                    l_ba=min(c.max_ln, 1024), rank_by_obs=True)
+                    l_ba=min(c.max_ln, 1024), rank_by_obs=True,
+                    use_stereo=self.cfg.sensor != "mono" and self._bf > 0,
+                    bf=self._bf)
 
     def _start_gba(self, n_rounds: int = 4):
         """Select the whole map and start a global BA of `n_rounds` rounds
@@ -599,10 +709,12 @@ class System:
     def _maybe_keyframe(self, feats, lfeats, res: tracking.TrackResult,
                         timestamp, n_inl: int, n_matched: int,
                         nref3: int) -> bool:
-        """`NeedNewKeyFrame` policy: the minimum interval elapsed and the
-        tracking weakened against the reference keyframe (inliers below
-        kf_ref_ratio of its >= 3-observation points, or of the matches
-        stored at the last keyframe while it has fewer than 30)."""
+        """`NeedNewKeyFrame` policy: the minimum interval elapsed (1 frame
+        on a depth sensor's frames, which create landmarks without a
+        baseline; else `kf_min_interval`) and the tracking weakened against
+        the reference keyframe (inliers below kf_ref_ratio of its >= 3-
+        observation points, or of the matches stored at the last keyframe
+        while it has fewer than 30)."""
         since = self.frame_id - self.last_kf_frame
         n_kf = self.n_kf_host
         # none right after a relocalization: the statistics gathered while
@@ -615,11 +727,13 @@ class System:
             return False
         ref_base = nref3 if nref3 >= 30 else max(self.ref_kf_matches, 15)
         weak = n_inl < self.cfg.kf_ref_ratio * ref_base
-        if not (weak and n_inl > 15 and since >= self.cfg.kf_min_interval):
+        use_depth = self._kp_depth is not None
+        min_iv = 1 if use_depth else self.cfg.kf_min_interval
+        if not (weak and n_inl > 15 and since >= min_iv):
             return False
         self._process_kf(self.ms, feats, lfeats, res.T, res.matched_pt,
-                         res.matched_ln, self.frame_id, None,
-                         do_kf_cull=n_kf % 4 == 3)
+                         res.matched_ln, self.frame_id, self._kp_depth,
+                         do_kf_cull=n_kf % 4 == 3, use_depth=use_depth)
         self.n_kf_host = n_kf + 1
         self._anchor_kf = None
         if self.loop_closer is not None:

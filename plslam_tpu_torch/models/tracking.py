@@ -1,7 +1,8 @@
 """Per-frame tracking against the local map.
 
-Port of `plslam_tpu/models/tracking.py` for points and lines (stereo edges
-are not ported yet). The step is branch-free and never waits for the device:
+Port of `plslam_tpu/models/tracking.py`: points and lines, with the 3-dof
+stereo point edges of a depth sensor. The step is branch-free and never
+waits for the device:
 every decision is a `torch.where`, every scatter writes through clamped
 indices or a dump slot, and the three point searches go through
 `ops/gated_match.gated_hamming_best2` (the CUDA kernel on CUDA tensors), so
@@ -220,8 +221,8 @@ def track_local_map(cam, ms: MapState, feats: PointFeatures, T_last,
                     th: float = 1.0, n_levels: int = 8, scale: float = 1.2,
                     line_info: float = 1.0, velocity=None,
                     vel_gamma: float = 0.8, update_stats: bool = False,
-                    anchor_kf=None, max_step_t: float = 0.15,
-                    max_step_r: float = 0.35):
+                    anchor_kf=None, kp_ur=None, bf: float = 0.0,
+                    max_step_t: float = 0.15, max_step_r: float = 0.35):
     """Two-stage tracking against the local map (`TrackWithMotionModel` ->
     `TrackLocalMap`): stage 1 optimizes the windowed motion-model matches and
     the windowless strict-ratio matches as separate hypotheses from the
@@ -230,8 +231,12 @@ def track_local_map(cam, ms: MapState, feats: PointFeatures, T_last,
     features `lfeats`, the map-line search) and the 4 x 10 pose optimization
     with the line endpoint edges weighted `line_info` x the line's
     triangulation conditioning; a jump guard rejects implausible
-    single-frame motion. A line is an inlier when both its endpoint edges
-    are.
+    single-frame motion, its translation cap relative to the mean depth of
+    the matches (so it holds on metric maps too). A line is an inlier when
+    both its endpoint edges are. With a depth sensor, `kp_ur` (N,) gives
+    each keypoint's right-image column (<= 0: none) and `bf` = fx x
+    baseline, and all three pose optimizations use 3-dof stereo point
+    edges.
 
     With `update_stats`, returns (result, ms) after updating the map's
     found/visible counters in place (`update_point_stats`)."""
@@ -243,6 +248,7 @@ def track_local_map(cam, ms: MapState, feats: PointFeatures, T_last,
     sigma2_kp = sigma2_levels[feats.octave.clamp(0, n_levels - 1).long()]
     local = local_map_mask(ms, anchor_kf=anchor_kf)
     no_lines = pose_opt.PoseObs.empty_lines(1, device)
+    stereo = {} if kp_ur is None else dict(pt_ur=kp_ur, bf=bf)
 
     # stage 1: windowed motion-model matches vs windowless ratio matches
     idx_w, m_w, _ = _match_against_map(cam, ms, feats, T_pred, scale_factors,
@@ -258,11 +264,11 @@ def track_local_map(cam, ms: MapState, feats: PointFeatures, T_last,
     g_ok = hamming.dedup_by_target(g_idx, g_ok, g_best, P)
     res_a = pose_opt.pose_optimize(
         cam, T_pred, pose_opt.PoseObs(ms.pt_xyz[idx_w], feats.uv_un,
-                                      sigma2_kp, m_w, *no_lines),
+                                      sigma2_kp, m_w, *no_lines, **stereo),
         rounds=2, iters_per_round=5)
     res_b = pose_opt.pose_optimize(
         cam, T_pred, pose_opt.PoseObs(ms.pt_xyz[g_idx], feats.uv_un,
-                                      sigma2_kp, g_ok, *no_lines),
+                                      sigma2_kp, g_ok, *no_lines, **stereo),
         rounds=2, iters_per_round=5)
     take_a = res_a.n_inliers >= res_b.n_inliers.clamp_min(10)
     take_b = ~take_a & (res_b.n_inliers >= 10)
@@ -289,7 +295,7 @@ def track_local_map(cam, ms: MapState, feats: PointFeatures, T_last,
         lines = no_lines
     res2 = pose_opt.pose_optimize(
         cam, T_mid, pose_opt.PoseObs(xyz2, feats.uv_un, sigma2_kp, m2,
-                                     *lines),
+                                     *lines, **stereo),
         rounds=4, iters_per_round=10)
 
     # catastrophic-jump guard, relative to the mean depth of the matches

@@ -10,8 +10,10 @@ a Python loop over tensor ops that accepts or rejects each step with
 `torch.where`, so nothing waits for the device.
 
 The three-operand contractions of the JAX einsums are split into pairwise
-products (torch contracts einsum operands left to right). Stereo edges
-(`obs_ur`) are not ported yet: ROADMAP Queue 1 item 14.
+products (torch contracts einsum operands left to right). With `obs_ur` (a
+depth sensor's right-image columns) every point cell has C = 3 residual
+components, the third zero for monocular observations, and stereo cells are
+gated at chi2 7.815 instead of 5.991.
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ from ..geometry.triangulation import inv3x3
 from . import residuals
 
 CHI2_POINT = 5.991
+CHI2_STEREO = 7.815  # 3-dof stereo point edges
 CHI2_LINE = 3.84  # per endpoint residual
 # max landmark move per LM iteration, in map units (mono maps are
 # median-depth-normalized to ~1 by the initializer)
@@ -46,8 +49,10 @@ class BAProblem(NamedTuple):
     ln_obs_l2d: torch.Tensor   # (K, L, 3) observed 2D line (unit normal)
     ln_obs_mask: torch.Tensor  # (K, L) bool
     ln_info: object = 0.5      # scalar or (L,) tensor information weight
-    obs_ur: Optional[torch.Tensor] = None   # stereo: not ported
-    bf: float = 0.0
+    # stereo: (K, P) right-image column per observation, <= 0 for a
+    # monocular one; None keeps the 2-component monocular cells
+    obs_ur: Optional[torch.Tensor] = None
+    bf: float = 0.0            # fx * baseline
 
 
 class BAResult(NamedTuple):
@@ -59,21 +64,22 @@ class BAResult(NamedTuple):
     cost: torch.Tensor
 
 
-def _check(prob: BAProblem):
-    if prob.obs_ur is not None:
-        raise NotImplementedError("stereo BA edges (obs_ur) are not ported "
-                                  "yet: ROADMAP Queue 1 item 14")
-
-
 def _point_terms(prob: BAProblem, kf_T, pt_xyz, cam):
-    """Residuals/Jacobians of every (camera, point) cell: r (K,P,2),
-    Jc (K,P,2,6), Jp (K,P,2,3), chi2 (K,P), depth (K,P)."""
+    """Residuals/Jacobians of every (camera, point) cell: r (K,P,C),
+    Jc (K,P,C,6), Jp (K,P,C,3), chi2 (K,P), depth (K,P) and the chi2 gate,
+    with C = 2, or 3 when the window carries stereo observations."""
     K, P = prob.obs_mask.shape
-    r, Jc, Jp, z = residuals.point_residual(
-        cam, kf_T[:, None].expand(K, P, 4, 4), pt_xyz[None].expand(K, P, 3),
-        prob.obs_uv)
+    T = kf_T[:, None].expand(K, P, 4, 4)
+    Xw = pt_xyz[None].expand(K, P, 3)
+    if prob.obs_ur is None:
+        r, Jc, Jp, z = residuals.point_residual(cam, T, Xw, prob.obs_uv)
+        gate = CHI2_POINT
+    else:
+        r, Jc, Jp, z = residuals.point_residual_stereo(
+            cam, prob.bf, T, Xw, prob.obs_uv, prob.obs_ur)
+        gate = torch.where(prob.obs_ur > 0, CHI2_STEREO, CHI2_POINT)
     chi2 = torch.sum(r * r, dim=-1) / prob.obs_sigma2
-    return r, Jc, Jp, chi2, z
+    return r, Jc, Jp, chi2, z, gate
 
 
 def _ln_w(prob: BAProblem):
@@ -103,9 +109,9 @@ def _solve_lm_step(prob, cam, kf_T, pt_xyz, ln_xyz, obs_in, ln_in, lam,
     landmarks; returns the stepped (kf_T, pt_xyz, ln_xyz)."""
     K = prob.kf_T.shape[0]
     dev = kf_T.device
-    r, Jc, Jp, chi2, z = _point_terms(prob, kf_T, pt_xyz, cam)
+    r, Jc, Jp, chi2, z, gate = _point_terms(prob, kf_T, pt_xyz, cam)
     m = ((prob.obs_mask & obs_in & (z > 0)).to(torch.float32)
-         / prob.obs_sigma2 * _huber(chi2, CHI2_POINT, robust))  # (K,P)
+         / prob.obs_sigma2 * _huber(chi2, gate, robust))        # (K,P)
     Jcm = Jc * m[..., None, None]
     Jpm = Jp * m[..., None, None]
     Hcc = torch.einsum("kpia,kpib->kab", Jcm, Jc)              # (K,6,6)
@@ -190,9 +196,9 @@ def _rho(chi2, gate, robust: bool):
 
 def _total_cost(prob, cam, kf_T, pt_xyz, ln_xyz, obs_in, ln_in,
                 robust: bool):
-    _, _, _, chi2, z = _point_terms(prob, kf_T, pt_xyz, cam)
+    _, _, _, chi2, z, gate = _point_terms(prob, kf_T, pt_xyz, cam)
     c = torch.where(prob.obs_mask & obs_in & (z > 0),
-                    _rho(chi2, CHI2_POINT, robust), 0.0).sum()
+                    _rho(chi2, gate, robust), 0.0).sum()
     _, _, _, chi2l, zl = _line_terms(prob, kf_T, ln_xyz, cam)
     return c + torch.where(
         prob.ln_obs_mask[:, :, None] & ln_in[:, :, None] & (zl > 0),
@@ -211,7 +217,6 @@ class LMState(NamedTuple):
 
 
 def ba_init(prob: BAProblem, cam, robust: bool = True) -> LMState:
-    _check(prob)
     c0 = _total_cost(prob, cam, prob.kf_T, prob.pt_xyz, prob.ln_xyz,
                      prob.obs_mask, prob.ln_obs_mask, robust)
     return LMState(prob.kf_T, prob.pt_xyz, prob.ln_xyz, prob.obs_mask,
@@ -240,8 +245,8 @@ def ba_rounds(prob: BAProblem, cam, st: LMState, n_iters: int,
 
 
 def _verdicts(prob, cam, st: LMState):
-    _, _, _, chi2, z = _point_terms(prob, st.kf_T, st.pt_xyz, cam)
-    obs_in = prob.obs_mask & (chi2 <= CHI2_POINT) & (z > 0)
+    _, _, _, chi2, z, gate = _point_terms(prob, st.kf_T, st.pt_xyz, cam)
+    obs_in = prob.obs_mask & (chi2 <= gate) & (z > 0)
     _, _, _, chi2l, zl = _line_terms(prob, st.kf_T, st.ln_xyz, cam)
     lep = (chi2l <= CHI2_LINE) & (zl > 0)
     return obs_in, prob.ln_obs_mask & lep[..., 0] & lep[..., 1]

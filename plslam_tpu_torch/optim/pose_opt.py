@@ -1,9 +1,11 @@
 """Pose-only Levenberg-Marquardt with staged chi2 outlier reclassification.
 
-Port of `plslam_tpu/optim/pose_opt.py` for monocular point edges plus line
-endpoint edges: `rounds` x `iters_per_round` LM iterations on the masked
-6x6 normal equations, Huber kernels in all but the last round, and chi2 gates
-(5.991 points, 3.84 per line endpoint) re-tested after every round.
+Port of `plslam_tpu/optim/pose_opt.py`: point edges (monocular, or with
+`pt_ur` the 3-dof stereo edges of a depth sensor) plus line endpoint edges;
+`rounds` x `iters_per_round` LM iterations on the masked 6x6 normal
+equations, Huber kernels in all but the last round, and chi2 gates (5.991
+mono points, 7.815 stereo points, 3.84 per line endpoint) re-tested after
+every round.
 
 The loops are Python loops over tensor ops with no host synchronization:
 an iteration's accept test selects with `torch.where`, the 6x6 solve does not
@@ -12,7 +14,7 @@ is copied from the host.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -20,6 +22,7 @@ from ..geometry import se3
 from . import residuals
 
 CHI2_POINT = 5.991
+CHI2_STEREO = 7.815   # 3-dof stereo point edges
 CHI2_LINE = 3.84
 
 
@@ -34,6 +37,10 @@ class PoseObs(NamedTuple):
     ln_l2d: torch.Tensor     # (L, 3) observed 2D lines (unit normal)
     ln_mask: torch.Tensor    # (L,) bool
     ln_info: torch.Tensor    # (L,) information weight
+    # stereo: per-keypoint right-image column (<= 0: a monocular edge);
+    # None keeps the 2-component monocular edges
+    pt_ur: Optional[torch.Tensor] = None   # (P,)
+    bf: float = 0.0                        # fx * baseline
 
     @staticmethod
     def empty_lines(n: int = 1, device=None):
@@ -53,14 +60,26 @@ class PoseOptResult(NamedTuple):
     n_inliers: torch.Tensor  # () int32 point inliers
 
 
+def _pt_edges(cam, T, obs: PoseObs):
+    """Point residuals, pose Jacobians, depths and the chi2 gate: 5.991 for
+    monocular edges, 7.815 per stereo edge (`pt_ur` > 0)."""
+    if obs.pt_ur is None:
+        r, J, _, z = residuals.point_residual(cam, T, obs.pt_xyz, obs.pt_uv)
+        return r, J, z, CHI2_POINT
+    r, J, _, z = residuals.point_residual_stereo(cam, obs.bf, T, obs.pt_xyz,
+                                                 obs.pt_uv, obs.pt_ur)
+    return r, J, z, torch.where(obs.pt_ur > 0, CHI2_STEREO, CHI2_POINT)
+
+
 def _normal_equations(cam, T, obs: PoseObs, pt_in, ln_in, robust: bool):
-    """Masked 6x6 H, 6 b, and the per-edge chi2 and depths at pose T."""
-    r_p, J_p, _, z_p = residuals.point_residual(cam, T, obs.pt_xyz, obs.pt_uv)
+    """Masked 6x6 H, 6 b, the per-edge chi2 and depths at pose T, and the
+    point edges' chi2 gate."""
+    r_p, J_p, z_p, gate_p = _pt_edges(cam, T, obs)
     w_p = 1.0 / obs.pt_sigma2
     chi2_p = torch.sum(r_p * r_p, dim=-1) * w_p
     m_p = (obs.pt_mask & pt_in & (z_p > 0)).to(torch.float32) * w_p
     if robust:
-        m_p = m_p * residuals.huber_weight(chi2_p, CHI2_POINT)
+        m_p = m_p * residuals.huber_weight(chi2_p, gate_p)
     H_p = torch.einsum("nij,nik,n->jk", J_p, J_p, m_p)
     b_p = -torch.einsum("nij,ni,n->j", J_p, r_p, m_p)
 
@@ -72,10 +91,10 @@ def _normal_equations(cam, T, obs: PoseObs, pt_in, ln_in, robust: bool):
         m_l = m_l * residuals.huber_weight(chi2_l, CHI2_LINE)
     H_l = torch.einsum("nj,nk,n->jk", J_l, J_l, m_l)
     b_l = -torch.einsum("nj,n,n->j", J_l, r_l, m_l)
-    return H_p + H_l, b_p + b_l, chi2_p, chi2_l, z_p, z_l
+    return H_p + H_l, b_p + b_l, chi2_p, chi2_l, z_p, z_l, gate_p
 
 
-def _rho(chi2, gate: float, robust: bool):
+def _rho(chi2, gate, robust: bool):
     if not robust:
         return chi2
     return torch.where(chi2 > gate,
@@ -85,10 +104,10 @@ def _rho(chi2, gate: float, robust: bool):
 
 def _cost(cam, T, obs: PoseObs, pt_in, ln_in, robust: bool):
     """Robustified total cost of the inlier edges at pose T."""
-    r_p, _, _, z_p = residuals.point_residual(cam, T, obs.pt_xyz, obs.pt_uv)
+    r_p, _, z_p, gate_p = _pt_edges(cam, T, obs)
     chi2_p = torch.sum(r_p * r_p, dim=-1) / obs.pt_sigma2
     c_p = torch.where(obs.pt_mask & pt_in & (z_p > 0),
-                      _rho(chi2_p, CHI2_POINT, robust), 0.0).sum()
+                      _rho(chi2_p, gate_p, robust), 0.0).sum()
     r_l, _, _, z_l = residuals.line_endpoint_residual(cam, T, obs.ln_xyz,
                                                       obs.ln_l2d)
     chi2_l = r_l * r_l * obs.ln_info
@@ -123,8 +142,8 @@ def pose_optimize(cam, T_init, obs: PoseObs, rounds: int = 4,
             lam = torch.where(accept, (lam * 0.5).clamp_min(1e-10),
                               (lam * 4.0).clamp_max(1e6))
             c_cur = torch.where(accept, c_new, c_cur)
-        _, _, chi2_p, chi2_l, z_p, z_l = _normal_equations(
+        _, _, chi2_p, chi2_l, z_p, z_l, gate_p = _normal_equations(
             cam, T, obs, all_pt, all_ln, robust)
-        pt_in = (chi2_p <= CHI2_POINT) & (z_p > 0) & obs.pt_mask
+        pt_in = (chi2_p <= gate_p) & (z_p > 0) & obs.pt_mask
         ln_in = (chi2_l <= CHI2_LINE) & (z_l > 0) & obs.ln_mask
     return PoseOptResult(T, pt_in, ln_in, pt_in.sum(dtype=torch.int32))

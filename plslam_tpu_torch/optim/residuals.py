@@ -1,7 +1,8 @@
 """Reprojection residuals and analytic Jacobians for points and line
 endpoints.
 
-Port of `plslam_tpu/optim/residuals.py` (the monocular edges). The pose
+Port of `plslam_tpu/optim/residuals.py`: monocular and stereo point edges and
+line endpoint edges. The pose
 tangent is [omega(3), upsilon(3)] with left-multiplicative updates
 ``T' = exp(xi) @ T``, so ``dX_c/domega = -hat(X_c)`` and ``dX_c/dupsilon = I``.
 """
@@ -34,6 +35,34 @@ def point_residual(cam, T_cw, X_w, uv_obs):
     v = cam.fy * Xc[..., 1] * iz + cam.cy
     r = torch.stack([u, v], dim=-1) - uv_obs
     Jproj = project_jacobian(cam, Xc)
+    J_pose = torch.cat([Jproj @ -se3.hat(Xc), Jproj], dim=-1)
+    J_point = Jproj @ T_cw[..., :3, :3]
+    return r, J_pose, J_point, z
+
+
+def point_residual_stereo(cam, bf, T_cw, X_w, uv_obs, ur_obs):
+    """3-component stereo residual (u_l, v_l, u_r) and Jacobians
+    (`EdgeStereoSE3ProjectXYZ`): the right-image column is predicted as
+    u_r = u_l - bf / z with bf = fx * baseline. Observations with
+    ur_obs <= 0 are monocular: their third residual and Jacobian row are
+    zero, so mixed edge sets share one batched form.
+
+    Returns (r (...,3), J_pose (...,3,6), J_point (...,3,3), z (...,))."""
+    Xc = se3.transform(T_cw, X_w)
+    x, y, z = Xc[..., 0], Xc[..., 1], Xc[..., 2]
+    iz = 1.0 / z.clamp_min(1e-6)
+    iz2 = iz * iz
+    u = cam.fx * x * iz + cam.cx
+    v = cam.fy * y * iz + cam.cy
+    has = ur_obs > 0
+    r = torch.stack([u - uv_obs[..., 0], v - uv_obs[..., 1],
+                     torch.where(has, u - bf * iz - ur_obs, 0.0)], dim=-1)
+    zeros = torch.zeros_like(x)
+    row_u = torch.stack([cam.fx * iz, zeros, -cam.fx * x * iz2], dim=-1)
+    row_v = torch.stack([zeros, cam.fy * iz, -cam.fy * y * iz2], dim=-1)
+    row_ur = (row_u + torch.stack([zeros, zeros, bf * iz2], dim=-1)) \
+        * has.to(torch.float32)[..., None]
+    Jproj = torch.stack([row_u, row_v, row_ur], dim=-2)
     J_pose = torch.cat([Jproj @ -se3.hat(Xc), Jproj], dim=-1)
     J_point = Jproj @ T_cw[..., :3, :3]
     return r, J_pose, J_point, z

@@ -97,20 +97,32 @@ def test_kernel_matches_plain_at_match_frames_shape():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("use_lines", [False, True])
-def test_tracking_and_keyframe_chain_never_wait_for_the_device(use_lines):
+@pytest.mark.parametrize("use_lines,sensor", [
+    pytest.param(False, "mono", id="False"),
+    pytest.param(True, "mono", id="True"),
+    pytest.param(True, "rgbd", id="rgbd"),
+    pytest.param(True, "stereo", id="stereo")])
+def test_tracking_and_keyframe_chain_never_wait_for_the_device(use_lines,
+                                                               sensor):
     """The System's tracking step and keyframe chain, at the smoke run's
-    configuration with lines off and on (line detection too), under
+    configuration with lines off and on (line detection too), and with
+    lines on through `track_rgbd` and `track_stereo` (the keypoint depth,
+    the stereo search, tracking on stereo edges, the depth chain), under
     torch's sync debug mode: any op that waits for the device raises. Runs
-    until the first keyframe of the chain."""
+    until the first keyframe of the chain (monocular) or the second
+    keyframe after the depth initialization."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     import dataclasses
+    import chip_smoke
     from chip_smoke import render_system_sequence, system_config
     from plslam_tpu_torch.models.system import System
 
-    slam = System(dataclasses.replace(system_config(), use_lines=use_lines),
-                  device=torch.device("cuda", 0))
+    if sensor == "mono":
+        cfg = dataclasses.replace(system_config(), use_lines=use_lines)
+    else:
+        cfg = chip_smoke.depth_config(sensor)
+    slam = System(cfg, device=torch.device("cuda", 0))
 
     def no_sync(fn):
         def wrapper(*args, **kwargs):
@@ -121,16 +133,25 @@ def test_tracking_and_keyframe_chain_never_wait_for_the_device(use_lines):
                 torch.cuda.set_sync_debug_mode("default")
         return wrapper
 
-    slam._track_update = no_sync(slam._track_update)
-    slam._process_kf = no_sync(slam._process_kf)
-    slam._detect_lines = no_sync(slam._detect_lines)
-    _, frames = render_system_sequence()
-    for i, img in enumerate(frames):
-        slam.track_monocular(img, i / 30.0)
+    for attr in ("_track_update", "_process_kf", "_detect_lines",
+                 "_depth_at", "_stereo_match", "_set_depth"):
+        setattr(slam, attr, no_sync(getattr(slam, attr)))
+    if sensor == "mono":
+        _, frames = render_system_sequence()
+        frames = [(img,) for img in frames]
+    elif sensor == "rgbd":
+        _, frames = chip_smoke.render_rgbd_sequence()
+    else:
+        _, frames, _ = chip_smoke.render_stereo_sequence()
+    track = getattr(slam, "track_" + ("monocular" if sensor == "mono"
+                                      else sensor))
+    for i, args in enumerate(frames):
+        track(*args, i / 30.0)
         if slam.n_kf_host > 2:
             break
     assert slam.state == "OK" and slam.n_kf_host == 3
     assert bool(slam.ms.kf_ln_valid[:3].any()) == use_lines
+    assert (sensor == "mono") == (slam._kp_ur is None)
 
 
 @pytest.mark.cuda

@@ -121,15 +121,6 @@ def test_bundle_adjust_matches_jax(window):
     np.testing.assert_array_equal(rt.kf_T.numpy()[:2], arrays["kf_T"][:2])
 
 
-def test_stereo_edges_raise(window):
-    arrays, info = window
-    prob = tba.BAProblem(**{k: _t(v) for k, v in arrays.items()},
-                         ln_info=_t(info),
-                         obs_ur=torch.zeros(arrays["obs_mask"].shape))
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tba.bundle_adjust(prob, TCAM)
-
-
 def _map(all_bound: bool):
     """A JAX map of 6 keyframes (capacity 8) over 80 points (capacity 128),
     each keyframe binding 48 of its 64 keypoints, or all 64 with
@@ -242,3 +233,38 @@ def test_ba_select_keeps_slot_zero_observations(all_bound, p_ba):
     other = np.ones(uv_t.shape[:2], bool)
     other[:, 0] = False
     np.testing.assert_array_equal(uv_t[other], uv_j[other])
+
+
+def test_ba_select_keeps_slot_zero_stereo_columns():
+    """Fault in the reference, pinned: the stereo grid `obs_ur` is scattered
+    as the other grids (`.at[slot].set(where(has, u_r, old))`,
+    `plslam_tpu/models/mapping.py:594-597`), so a keypoint without a BA slot
+    after the real observer of BA slot 0 writes the -1 it read back over
+    slot 0's right column, and slot 0's stereo edge becomes a monocular one.
+    The port writes the observing lanes only. Map of `_map(all_bound=False)`
+    with every keypoint's u_r = u - bf / 4."""
+    ms_j = _map(all_bound=False)
+    bf = 40.0
+    ms_j = ms_j._replace(kf_ur=jnp.where(ms_j.kf_valid[:, None],
+                                         ms_j.kf_uv[..., 0] - bf / 4.0, -1.0))
+    sj = jmap.ba_select(ms_j, jnp.asarray(SIGMA2), window=5, p_ba=128,
+                        l_ba=8, use_stereo=True, bf=bf)
+    st = tmap.ba_select(_port(ms_j), _t(SIGMA2), window=5, p_ba=128, l_ba=8,
+                        use_stereo=True, bf=bf)
+    assert sj.prob.bf == st.prob.bf == bf
+    ur_t, ur_j = st.prob.obs_ur.numpy(), np.asarray(sj.prob.obs_ur)
+    has, slot = np.asarray(sj.has), np.asarray(sj.slot_safe)
+    kf_ur = np.asarray(ms_j.kf_ur)[np.asarray(sj.ids_c)]
+    lost = []
+    for w in range(has.shape[0]):
+        for n in np.nonzero(has[w])[0]:
+            assert ur_t[w, slot[w, n]] == kf_ur[w, n]
+            if slot[w, n] == 0 and ur_j[w, 0] == -1.0:
+                lost.append((w, float(kf_ur[w, n])))
+    print(f"window rows whose slot-0 u_r the reference lost (row, u_r): "
+          f"{lost}")
+    assert lost               # the reference set them to -1: mono edges
+    np.testing.assert_array_equal(ur_t[:, 1:], ur_j[:, 1:])
+    np.testing.assert_array_equal(ur_t[~np.asarray(sj.prob.obs_mask)], -1.0)
+    mono = tmap.ba_select(_port(ms_j), _t(SIGMA2), window=5, p_ba=128, l_ba=8)
+    assert mono.prob.obs_ur is None

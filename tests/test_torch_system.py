@@ -191,8 +191,7 @@ def test_mask_path_reaches_detect_lines(tmp_path):
 
 
 @pytest.mark.parametrize("option,value,item", [
-    ("sensor", "rgbd", 14), ("async_pipeline", True, 15),
-    ("subpixel", True, 16)])
+    ("async_pipeline", True, 15), ("subpixel", True, 16)])
 def test_unported_options_raise(option, value, item):
     cfg = tsys.SLAMConfig(**{**SMALL, option: value})
     with pytest.raises(NotImplementedError, match=f"item {item}$"):
@@ -200,9 +199,7 @@ def test_unported_options_raise(option, value, item):
 
 
 @pytest.mark.parametrize("method,args,item", [
-    ("track_chunked", (None, None), 15), ("track_synced", (None, 0.0), 15),
-    ("track_stereo", (None, None, 0.0), 14),
-    ("track_rgbd", (None, None, 0.0), 14)])
+    ("track_chunked", (None, None), 15), ("track_synced", (None, 0.0), 15)])
 def test_unported_entry_points_raise(method, args, item):
     slam = tsys.System(tsys.SLAMConfig(**SMALL), device="cpu")
     with pytest.raises(NotImplementedError, match=f"item {item}$"):
