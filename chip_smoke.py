@@ -3,6 +3,11 @@
 
     python3 chip_smoke.py
 
+Every phase runs the per-frame steps as CUDA graphs (`models/step_graph`)
+except the system phase and the dispatch phase's eager run, which record
+K1's real calls eagerly (a capture fills no buffer); a graphed phase times
+line detection as part of extraction.
+
 1. builds the gated Hamming top-2 kernel (K1) from `plslam_tpu_torch/csrc`;
 2. checks K1 against its plain PyTorch version on the card, bit for bit, at
    (N=200, P=700) and at the tracking step's (N=1024, P=12288), gated and
@@ -15,10 +20,11 @@
 3. the tracking slice: the per-frame tracking step over a rendered 48-frame
    640x480 sequence at the default configuration (1024 features, 8 levels, a
    12288-point map): a depth bootstrap on frame 0, then extraction ->
-   undistortion -> local-map tracking on frames 1-47, with a depth keyframe
-   every 8th frame. It checks >= 30 inliers per frame, an ATE below 5% of the
-   path length (no alignment: the map is metric and frame 0 is the origin),
-   and that every search of the step went through K1 (3 per frame);
+   undistortion -> local-map tracking on frames 1-47 (one graph each), with
+   a depth keyframe every 8th frame. It checks >= 30 inliers per frame, an
+   ATE below 5% of the path length (no alignment: the map is metric and
+   frame 0 is the origin), and that every search of the step went through
+   K1 (3 per frame);
 4. the system phase: `System.track_monocular` over the 60-frame system
    sequence (`make_scene(seed=1)`, orbit) at the `SLAMConfig` defaults with
    the renderer's camera and lines off (loop closing and map growth on). It
@@ -32,6 +38,22 @@
    frame tracked after the chain's first keyframe (the wide-window, the
    gates-off ratio and the local-map search), and checks and times K1 on
    those four real calls as in step 2, with the share of pairs that pass;
+4b. the dispatch phase: the system sequence at `bench.py`'s configuration
+   (1024 features, 8 levels, 32 keyframes x 8192 points, a 6 x 2048 BA
+   window, kf_max_interval 6, growth off, lines and loop closing on) five
+   times: `track_monocular` eager and graphed, `track_synced`,
+   `track_chunked` in chunks of 6 and `async_pipeline` at depth 4, each
+   with step 4's checks and K1's count (3 launches per tracked frame,
+   replayed or not); per run the host ms per frame (median, p90; the
+   latency paths synchronize after every call), frames/s after
+   initialization and the graphs' captures and replays. The eager run
+   records K1's real calls at this configuration's map (the init match and
+   the first frame tracked after the chain's first keyframe) and checks and
+   times K1 on them as in step 2. Then the tracking
+   graph against the eager step on the same inputs, with a re-capture after
+   a growth event, and one graphed chunk against an eager one from one
+   state, at ROADMAP item 7's bars (T within 1e-4, inliers within 2,
+   `matched_pt` >= 99% equal);
 5. the lines phase, on the line-rich sequence of tests/test_lines_help.py
    (40 frames, `make_scene(seed=9, n_lines=24)`, plane textures flattened):
    (a) `System.track_monocular` at the `SLAMConfig` defaults with lines on,
@@ -113,7 +135,7 @@ SIM3_SEARCHES = ("Sim3 pairs forward (gates off)",
                  "Sim3 pairs reverse (gates off)")
 # the stages run_system times on the host clock
 STAGES = ("extract", "lines", "stereo", "match", "two_view", "init_ba",
-          "track",
+          "track", "frame",
           "keyframe", "create_lines", "local_ba", "young_gba", "reloc",
           "detect", "sim3", "correct", "search_fuse", "gba_step", "gba_merge",
           "grow")
@@ -152,6 +174,15 @@ STEREO_BASELINE = 0.3
 DEPTH_BARS = {"rgbd": (200, 0.03), "stereo": (150, 0.10)}  # points, ATE m
 STEREO_DEPTH_FRAME = 3
 STEREO_DEPTH_BARS = dict(n=150, median=0.006, p90=0.02, far_p90=0.02)
+DISPATCH_CHUNK = 6
+DISPATCH_RUNS = (  # label, entry point, graphed, SLAMConfig overrides
+    ("monocular eager", "track_monocular", False, {}),
+    ("monocular graphed", "track_monocular", True, {}),
+    ("synced", "track_synced", True, {}),
+    (f"chunked B={DISPATCH_CHUNK}", "track_chunked", True, {}),
+    ("async depth 4", "track_monocular", True,
+     dict(async_pipeline=True, async_depth=4)))
+GRAPH_T_TOL, GRAPH_INLIERS, GRAPH_MATCHED = 1e-4, 2, 0.99   # item 7's bars
 
 
 def fail(msg: str):
@@ -362,18 +393,20 @@ def render_sequence(n_frames=N_FRAMES):
     return Ts, np.stack(frames), depths
 
 
-def run_slice(frames_np, depths_np, after_frame=lambda i: None):
+def run_slice(frames_np, depths_np, after_frame=lambda i: None,
+              use_graphs=True):
     """The port's per-frame step on the card at the repo's configuration
     (1024 features, 8 levels, a 12288-point map): a depth bootstrap on frame
     0, then extraction -> undistortion -> tracking on every later frame, with
-    a depth keyframe every KF_EVERY frames. Each stage runs under a
-    `record_function` label (extract, track, keyframe) and is timed on the
-    host clock up to a device synchronization; `after_frame(i)` is called
-    once frame i is done."""
+    a depth keyframe every KF_EVERY frames. Extraction and tracking are one
+    CUDA graph each (`models/step_graph`) unless `use_graphs` is False. Each
+    stage runs under a `record_function` label (extract, track, keyframe)
+    and is timed on the host clock up to a device synchronization;
+    `after_frame(i)` is called once frame i is done."""
     from torch.profiler import record_function
     from plslam_tpu_torch.geometry import camera
     from plslam_tpu_torch.mapstate import state as mstate
-    from plslam_tpu_torch.models import mapping, tracking
+    from plslam_tpu_torch.models import mapping, step_graph, tracking
     from plslam_tpu_torch.ops import extract, gated_match, stereo
 
     device = torch.device("cuda", 0)
@@ -387,11 +420,22 @@ def run_slice(frames_np, depths_np, after_frame=lambda i: None):
     ms = mstate.allocate(map_cfg, device)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
+    graphs = step_graph.StepGraphs(device, enabled=use_graphs)
+
+    def extract_impl(img):
+        f = extractor(img.to(torch.float32))
+        return f._replace(uv_un=camera.undistort_pixels(cam, f.uv))
+
+    def track_impl(ms, f, T, vel):
+        return tracking.track_local_map(
+            cam, ms, f, T, sf, s2, n_levels=cfg.n_levels, scale=cfg.scale,
+            velocity=vel, update_stats=True)[0]
+    extract_step = graphs.step(extract_impl)
+    track_step = graphs.step(track_impl, bound=0)
 
     def features(i):
         with record_function("extract"):
-            f = extractor(frames[i].to(torch.float32))
-            return f._replace(uv_un=camera.undistort_pixels(cam, f.uv))
+            return extract_step(frames[i])
 
     def add_keyframe(f, T, matched_pt, i):
         with record_function("keyframe"):
@@ -414,9 +458,7 @@ def run_slice(frames_np, depths_np, after_frame=lambda i: None):
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         with record_function("track"):
-            res, ms = tracking.track_local_map(
-                cam, ms, f, T, sf, s2, n_levels=cfg.n_levels, scale=cfg.scale,
-                velocity=vel, update_stats=True)
+            res = track_step(ms, f, T, vel)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
         T, vel = res.T, res.velocity
@@ -433,6 +475,7 @@ def run_slice(frames_np, depths_np, after_frame=lambda i: None):
                 trk=np.array(t_trk), kf=np.array(t_kf),
                 launches=gated_match.gated_hamming_best2.launches,
                 n_pt=int(ms.n_pt), n_kf=int(ms.n_kf),
+                captures=graphs.captures, replays=graphs.replays,
                 peak=torch.cuda.max_memory_allocated(device))
 
 
@@ -460,17 +503,21 @@ def system_config():
 
 
 def run_system(frames, cfg=None, record_calls=True, drive=None,
-               track="track_monocular"):
+               track="track_monocular", use_graphs=None, stage_times=True):
     """`System.track_monocular` (or the entry point `track`, each frame a
     tuple of its image arguments) over the frames on cuda:0 at `cfg`
-    (default `system_config()`). Each stage (extraction, line detection
-    inside it, the stereo search,
-    initialization match and two-view solve, tracking, the keyframe chain
-    and the line triangulations and local BAs inside it, the local BA after
+    (default `system_config()`), its per-frame steps graphed unless
+    `use_graphs` is False (default: graphed unless `record_calls`: K1's
+    arguments are recorded from eager calls, a capture fills no buffer).
+    Each stage (extraction, line detection inside it when eager, the
+    stereo search, initialization match and two-view solve, tracking, the
+    graphed extraction-and-tracking frame step, the keyframe chain and the
+    line triangulations and local BAs inside it, the local BA after
     initialization, relocalization, and with loop closing its detection,
     Sim3 stage, correction, search-and-fuse, global-BA rounds and merge, and
     growth) is wrapped to run between two device synchronizations and timed
-    on the host clock; K1's launch count is set to 0 just before the run
+    on the host clock (with `stage_times` False only counted, with no
+    synchronization); K1's launch count is set to 0 just before the run
     and read just after. With `record_calls`, K1's arguments are recorded on
     the initialization frame (its `match_frames` call) and on the first
     frame tracked after the first keyframe of the chain (its three
@@ -483,11 +530,17 @@ def run_system(frames, cfg=None, record_calls=True, drive=None,
     from plslam_tpu_torch.ops import gated_match
 
     device = torch.device("cuda", 0)
-    slam = System(cfg if cfg is not None else system_config(), device=device)
+    if use_graphs is None:
+        use_graphs = not record_calls
+    slam = System(cfg if cfg is not None else system_config(), device=device,
+                  use_graphs=use_graphs)
     times = {k: [] for k in STAGES}
 
     def timed(fn, name):
         def wrapper(*args, **kwargs):
+            if not stage_times:
+                times[name].append(None)
+                return fn(*args, **kwargs)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = fn(*args, **kwargs)
@@ -513,14 +566,17 @@ def run_system(frames, cfg=None, record_calls=True, drive=None,
                 recorder.on, recorder.calls = saved
         return wrapper
 
+    # line detection runs inside the extraction graph: no synchronization
+    # may go there
     for attr, name in (("_extract", "extract"), ("_detect_lines", "lines"),
                        ("_stereo_match", "stereo"),
                        ("_match_frames", "match"),
                        ("_init_two_view", "two_view"),
-                       ("_track_update", "track"),
+                       ("_track_update", "track"), ("_frame_step", "frame"),
                        ("_process_kf", "keyframe"), ("_local_ba", "init_ba"),
                        ("run_global_ba", "young_gba")):
-        setattr(slam, attr, timed(getattr(slam, attr), name))
+        if name != "lines" or not use_graphs:
+            setattr(slam, attr, timed(getattr(slam, attr), name))
     slam._relocalize = recorded(timed(slam._relocalize, "reloc"), "reloc")
     step_gba = timed(slam._step_gba, "gba_step")
     slam._step_gba = lambda: None if slam._gba is None else step_gba()
@@ -588,18 +644,22 @@ def run_system(frames, cfg=None, record_calls=True, drive=None,
     idx = [i for i in range(len(frames)) if i / 30.0 in traj]
     return dict(slam=slam, init=init, states=states, times=times,
                 launches=launches, idx=idx, real_calls=real_calls + init_call,
+                captures=slam.graphs.captures, replays=slam.graphs.replays,
                 stage_calls=stage_calls, sim3_log=sim3_log,
                 poses=np.stack([traj[i / 30.0] for i in idx]),
                 peak=torch.cuda.max_memory_allocated(device))
 
 
 def expected_launches(times) -> tuple:
-    """(K1 launches a run must make, the formula): 3 per tracked frame, 1
-    per initialization match, 2 per relocalization attempt and 2 per Sim3
+    """(K1 launches a run must make, the formula): 3 per tracked frame (a
+    tracking step or an extraction-and-tracking frame step), 1 per
+    initialization match, 2 per relocalization attempt and 2 per Sim3
     stage."""
-    n = {k: len(times[k]) for k in ("track", "match", "reloc", "sim3")}
-    return (3 * n["track"] + n["match"] + 2 * n["reloc"] + 2 * n["sim3"],
-            f"3 x {n['track']} tracked frames + {n['match']} init matches "
+    n = {k: len(times[k]) for k in ("track", "frame", "match", "reloc",
+                                    "sim3")}
+    n_track = n["track"] + n["frame"]
+    return (3 * n_track + n["match"] + 2 * n["reloc"] + 2 * n["sim3"],
+            f"3 x {n_track} tracked frames + {n['match']} init matches "
             f"+ 2 x {n['reloc']} relocalization attempts + 2 x {n['sim3']} "
             f"Sim3 stages")
 
@@ -607,7 +667,7 @@ def expected_launches(times) -> tuple:
 def print_stage_times(label, times):
     pct_ms = lambda x, q: 1e3 * float(np.percentile(x, q))
     for name in STAGES:
-        x = times[name]
+        x = [t for t in times[name] if t is not None]
         if x and name not in ("match", "two_view", "init_ba"):
             print(f"{label}: {name} ms median {pct_ms(x, 50):.2f} p90 "
                   f"{pct_ms(x, 90):.2f} over {len(x)} calls")
@@ -628,7 +688,7 @@ def check_system(Ts, out, label="system", min_lines=0):
     from plslam_tpu_torch.datasets import synthetic
     slam, init, times = out["slam"], out["init"], out["times"]
     print_stage_times(label, times)
-    if init is not None and times["init_ba"]:
+    if init is not None and times["init_ba"] and None not in times["match"]:
         tv = times["two_view"]
         print(f"{label}: init on frame {init}: "
               f"{1e3 * slam.timings[init]:.2f} ms, of which match "
@@ -637,7 +697,7 @@ def check_system(Ts, out, label="system", min_lines=0):
               f"{1e3 * times['init_ba'][0]:.2f} ms; {len(times['match'])} "
               f"match and {len(tv)} two-view attempts in all, the first "
               f"two-view {1e3 * tv[0]:.2f} ms")
-    n_track = len(times["track"])
+    n_track = len(times["track"]) + len(times["frame"])
     lost = [i for i, s in enumerate(out["states"]) if init is not None
             and i > init and s != "OK"]
     idx = out["idx"]
@@ -670,6 +730,227 @@ def check_system(Ts, out, label="system", min_lines=0):
         fail(f"{label}: ATE {ate:.4f} m is not below {ATE_FRACTION:.0%} of "
              f"the {span:.3f} m span")
     return ate, span
+
+
+def dispatch_config(**overrides):
+    """bench.py's `SLAMConfig` (1024 features, 8 levels, 32 keyframes x 8192
+    points, a 6 x 2048 BA window, kf_max_interval 6, growth off; lines and
+    loop closing on, as by default) with the renderer's camera."""
+    from plslam_tpu_torch.models.system import SLAMConfig
+    return SLAMConfig(fx=FX, fy=FX, cx=WIDTH / 2, cy=HEIGHT / 2, k1=0, k2=0,
+                      p1=0, p2=0, k3=0, n_features=1024, n_levels=8,
+                      max_kf=32, max_pt=8192, ba_window=6, ba_points=2048,
+                      kf_max_interval=6, grow_map=False, **overrides)
+
+
+def clone_map(ms):
+    """A copy of a `MapState` in fresh tensors."""
+    import dataclasses
+    return dataclasses.replace(ms, **{f.name: getattr(ms, f.name).clone()
+                                      for f in dataclasses.fields(ms)})
+
+
+def copy_state(dst, src):
+    """`src` System's map (a copy) and tracking state into System `dst`."""
+    dst.ms = clone_map(src.ms)
+    for name in ("state", "frame_id", "n_kf_host", "last_kf_frame",
+                 "last_reloc_frame", "ref_kf_matches", "_occupancy",
+                 "map_cfg"):
+        setattr(dst, name, getattr(src, name))
+    dst.T_last, dst.velocity = src.T_last.clone(), src.velocity.clone()
+    dst.kf_timestamps = list(src.kf_timestamps)
+    dst._traj = list(src._traj)
+
+
+def _track_gaps(a, b) -> dict:
+    """Item 7's quantities between two TrackResults: the pose gap, the
+    inlier difference and the share of equal `matched_pt` entries."""
+    return dict(T=float((a.T - b.T).abs().max()),
+                inliers=abs(int(a.n_inliers) - int(b.n_inliers)),
+                matched=float((a.matched_pt == b.matched_pt).float().mean()))
+
+
+def _graph_failures(label, gaps) -> list:
+    return [f"{label}: {name} {gaps[name]} beyond {bar}"
+            for name, bar, bad in (
+                ("T", GRAPH_T_TOL, gaps["T"] > GRAPH_T_TOL),
+                ("inliers", GRAPH_INLIERS, gaps["inliers"] > GRAPH_INLIERS),
+                ("matched", GRAPH_MATCHED, gaps["matched"] < GRAPH_MATCHED))
+            if bad]
+
+
+def check_graphed_step(frames, cfg, n_cmp=4) -> dict:
+    """The tracking graph against the eager tracking step on the same
+    inputs, at ROADMAP item 7's bars (T within 1e-4, inliers within 2,
+    `matched_pt` >= 99% equal): an eager System tracks until two frames
+    after its initialization; on each of the next `n_cmp` frames both steps
+    run from its pose and velocity on the frame's features, each on its own
+    copy of its map, before the System tracks the frame itself. The graph
+    captures on the first (returning its eager warm-up's result) and
+    replays on the others. Then the map grows (capacities doubled) and the
+    step, its graph's pointers stale, captures anew on the grown copies for
+    one more frame. Returns the worst gaps and the captures and replays;
+    fails on a bar."""
+    from plslam_tpu_torch.mapstate import state as mstate
+    from plslam_tpu_torch.models import step_graph
+    from plslam_tpu_torch.models.system import System
+
+    device = torch.device("cuda", 0)
+    slam = System(cfg, device=device, use_graphs=False)
+    i, after = 0, 0
+    while after < 2:
+        slam.track_monocular(frames[i], i / 30.0)
+        after += slam.state == "OK"
+        i += 1
+    graphs = step_graph.StepGraphs(device)
+    step = graphs.step(slam._track_impl, bound=0)
+    worst, bad, copies = dict(T=0.0, inliers=0, matched=1.0), [], None
+    for k in range(n_cmp + 1):
+        if k == n_cmp:
+            c = slam.map_cfg
+            slam.map_cfg = c._replace(max_kf=2 * c.max_kf,
+                                      max_pt=2 * c.max_pt,
+                                      max_ln=2 * c.max_ln)
+            slam.ms = mstate.grow(slam.ms, slam.map_cfg)
+            if slam.loop_closer is not None:
+                slam.loop_closer.map_cfg = slam.map_cfg
+            copies = None
+        if copies is None:
+            copies = [clone_map(slam.ms), clone_map(slam.ms)]
+        else:
+            for cp in copies:
+                for f, t in vars(slam.ms).items():
+                    getattr(cp, f).copy_(t)
+        feats, lfeats = slam._extract(frames[i])
+        kw = dict(lfeats=lfeats, velocity=slam.velocity,
+                  anchor_kf=slam._anchor_arg())
+        eager = slam._track_impl(copies[0], feats, slam.T_last, **kw)
+        graphed = step(copies[1], feats, slam.T_last, **kw)
+        gaps = _track_gaps(eager, graphed)
+        bad += _graph_failures(f"graphed step, frame {i}", gaps)
+        worst = dict(T=max(worst["T"], gaps["T"]),
+                     inliers=max(worst["inliers"], gaps["inliers"]),
+                     matched=min(worst["matched"], gaps["matched"]))
+        slam.track_monocular(frames[i], i / 30.0)
+        i += 1
+    worst.update(captures=graphs.captures, replays=graphs.replays)
+    if (graphs.captures, graphs.replays) != (2, n_cmp - 1):
+        bad.append(f"graphed step: {graphs.captures} captures and "
+                   f"{graphs.replays} replays, expected 2 and {n_cmp - 1}")
+    if bad:
+        fail("; ".join(bad))
+    return worst
+
+
+def check_chunk_frames(frames, cfg, B=DISPATCH_CHUNK) -> dict:
+    """One chunk of `track_chunked`, graphed and eager, from one state: an
+    eager System tracks until two frames after its initialization, its map
+    and state are copied into a graphed System, and both take the next B
+    frames as one chunk. Each frame's pose in the graphed chunk must be its
+    own (no two frames share a stack slot) and agree with the eager
+    chunk's within item 7's bars, with the same decisions after the flush.
+    Returns the worst pose gap; fails on a bar."""
+    from plslam_tpu_torch.models.system import System
+    device = torch.device("cuda", 0)
+    eager = System(cfg, device=device, use_graphs=False)
+    i, after = 0, 0
+    while after < 2:
+        eager.track_monocular(frames[i], i / 30.0)
+        after += eager.state == "OK"
+        i += 1
+    graphed = System(cfg, device=device)
+    copy_state(graphed, eager)
+    imgs, tss = np.stack(frames[i:i + B]), [(i + j) / 30.0 for j in range(B)]
+    out, stats = {}, {}
+    for name, slam in (("eager", eager), ("graphed", graphed)):
+        n0 = len(slam.stats)
+        out[name] = slam.track_chunked(imgs, tss).clone()
+        slam.flush()
+        stats[name] = slam.stats[n0:]
+    Tg, Te = out["graphed"], out["eager"]
+    gap = float((Tg - Te).abs().max())
+    bad = []
+    if gap > GRAPH_T_TOL:
+        bad.append(f"chunk poses differ by {gap} (> {GRAPH_T_TOL})")
+    step_gaps = [float((Tg[j] - Tg[j + 1]).abs().max()) for j in range(B - 1)]
+    if min(step_gaps) == 0.0:
+        bad.append(f"two frames of the graphed chunk share a pose: "
+                   f"{step_gaps}")
+    for j, (a, b) in enumerate(zip(stats["graphed"], stats["eager"])):
+        if (abs(a["inliers"] - b["inliers"]) > GRAPH_INLIERS
+                or (a["kf"], a["lost"]) != (b["kf"], b["lost"])):
+            bad.append(f"chunk frame {j}: graphed {a}, eager {b}")
+    if bad:
+        fail("; ".join(bad))
+    return dict(T=gap, frames=B, captures=graphed.graphs.captures)
+
+
+def run_dispatch(gm, Ts, frames, timing) -> dict:
+    """The dispatch phase: the system sequence at `dispatch_config()`
+    through `DISPATCH_RUNS`, each a fresh System checked against
+    `check_system`'s bars. Per run: the host ms of each call of the entry
+    point per frame (a call that is followed by a synchronization on the
+    latency paths, the monocular and synced ones; the chunked and async
+    runs synchronize only at the end), frames per second from the first
+    call after initialization to the end (flush and a synchronization
+    included), and the graphs' captures and replays and K1's launches.
+    The eager run records K1's real calls, which are checked and timed
+    into `timing` as in step 2."""
+    res = {}
+    for label, entry, graphed, extra in DISPATCH_RUNS:
+        calls, latency = [], entry != "track_chunked" and not extra
+        B = DISPATCH_CHUNK if entry == "track_chunked" else 1
+
+        def drive(slam, step):
+            for c0 in range(0, len(frames), B):
+                t0 = time.perf_counter()
+                if B > 1:
+                    slam.track_chunked(np.stack(frames[c0:c0 + B]),
+                                       [(c0 + j) / 30.0 for j in range(B)])
+                else:
+                    step(c0)
+                if latency:
+                    torch.cuda.synchronize()
+                calls.append((c0, t0, time.perf_counter()))
+            slam.flush()
+            torch.cuda.synchronize()
+            calls.append((len(frames), time.perf_counter(), None))
+
+        t0 = time.perf_counter()
+        out = run_system(frames, dispatch_config(**extra),
+                         record_calls=not graphed, drive=drive,
+                         track=entry,
+                         use_graphs=graphed, stage_times=False)
+        wall = time.perf_counter() - t0
+        slam = out["slam"]
+        # the init frame (the second keyframe's) and each later frame's
+        # state from its resolved decision
+        init = round(30 * slam.kf_timestamps[1]) if len(
+            slam.kf_timestamps) > 1 else None
+        out["init"] = init
+        out["states"] = ["NOT_INITIALIZED"] * (init + 1) + [
+            "LOST" if s["lost"] else "OK" for s in slam.stats] \
+            if init is not None else []
+        ate, span = check_system(Ts, out, f"dispatch, {label}")
+        if not graphed:
+            check_real_calls(gm, out, timing, f"dispatch, {label}")
+        after = [c for c in calls[:-1] if init is not None and c[0] > init]
+        per = 1e3 * np.array([(b - a) / B for _, a, b in after])
+        t_end = calls[-1][1]
+        fps = (len(frames) - after[0][0]) / (t_end - after[0][1])
+        print(f"dispatch, {label}: per-frame host ms median "
+              f"{np.median(per):.2f} p90 {np.percentile(per, 90):.2f} over "
+              f"{len(after)} calls after init frame {init} ("
+              f"{'each ending in a synchronization' if latency else 'no synchronization until the end'}"
+              f"), {fps:.2f} frames/s to the end (flush and a "
+              f"synchronization included); captures {out['captures']} "
+              f"({slam.graphs.capture_s:.2f} s of host time, warm-ups "
+              f"included), replays {out['replays']}, K1 launches "
+              f"{out['launches']}; run {wall:.1f} s")
+        res[label] = dict(out=out, median=float(np.median(per)),
+                          p90=float(np.percentile(per, 90)), fps=fps,
+                          ate=ate, span=span)
+    return res
 
 
 def render_lines_sequence(n_frames=LINES_FRAMES):
@@ -985,7 +1266,7 @@ def check_stereo_depth(slam, frame, dep_gt):
     Hamming product alone (`hamming.distance_matrix`)."""
     from functools import partial
     from plslam_tpu_torch.ops import hamming, stereo
-    im_l, im_r = (slam._image(im) for im in frame)
+    im_l, im_r = (slam._image(im).to(torch.float32) for im in frame)
     fl, fr = slam.extractor(im_l), slam.extractor(im_r)
     match = partial(stereo.stereo_match, fx=float(slam.cfg.fx),
                     baseline=slam.cfg.baseline,
@@ -1108,6 +1389,7 @@ def check_detect_on_card(frames, idx=DETECT_FRAMES):
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("no CUDA device: the port's kernels need one", file=sys.stderr)
         return 2
@@ -1144,6 +1426,47 @@ def main() -> int:
                         .to(device).to(torch.float32)) for i in (0, 2))
     timing = check_kernel(gm, device, match_frames_case(f0, f2))
 
+    launches = {}
+    launches["slice"] = check_slice()
+    launches["system"] = check_system_phase(gm, Ts_sys, frames_sys, timing)
+    t0 = time.perf_counter()
+    for label, r in run_dispatch(gm, Ts_sys, frames_sys, timing).items():
+        launches[f"dispatch, {label}"] = r["out"]["launches"]
+    g = check_graphed_step(frames_sys, dispatch_config())
+    print(f"dispatch: the graphed tracking step against the eager one "
+          f"on the same inputs, 4 frames and one after a growth event: "
+          f"T within {g['T']:.2e}, inliers within {g['inliers']}, "
+          f"matched_pt {100 * g['matched']:.2f}% equal; "
+          f"{g['captures']} captures, {g['replays']} replays")
+    c = check_chunk_frames(frames_sys, dispatch_config())
+    print(f"dispatch: one chunk of {c['frames']}, graphed against eager "
+          f"from one state: poses within {c['T']:.2e}, decisions equal; "
+          f"{c['captures']} captures; phase "
+          f"{time.perf_counter() - t0:.1f} s")
+    check_later_phases(gm, device, timing, launches)
+    print(f"K1 launches: " + ", ".join(f"{k} {v}" for k, v in
+                                       launches.items()))
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
+
+    head = timing[(1024, 12288, True)]
+    print(f"card: {card_line()}")
+    print(json.dumps({"kernels": [{
+        "name": "gated_hamming_best2", "route": "cuda",
+        "source": "plslam_tpu_torch/csrc/gated_hamming.cu",
+        "replaces": "plslam_tpu/ops/pallas_match.py:115",
+        "launches": sum(launches.values()),
+        "max_abs_err": max(c["err"] for c in timing.values()),
+        "ms": head["ms"], "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "library_ms": head["library_ms"]}]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def check_slice() -> int:
+    """The tracking slice, graphed: its checks; returns K1's launches."""
     t0 = time.perf_counter()
     Ts, frames, depths = render_sequence()
     print(f"rendered {N_FRAMES} frames 640x480 in "
@@ -1165,7 +1488,8 @@ def main() -> int:
                     ("step", step), ("keyframe insert", out["kf"])):
         print(f"slice: {name} ms median {pct_ms(x, 50):.2f} p90 {pct_ms(x, 90):.2f}")
     print(f"slice: {1e3 / pct_ms(step, 50):.2f} frames/s at the median step; "
-          f"peak device memory {out['peak'] / 2**20:.1f} MiB")
+          f"peak device memory {out['peak'] / 2**20:.1f} MiB; graphs: "
+          f"{out['captures']} captures, {out['replays']} replays")
 
     if inl.min() < MIN_INLIERS:
         fail(f"frame {int(inl.argmin()) + 1} tracked {inl.min()} inliers "
@@ -1176,21 +1500,41 @@ def main() -> int:
     if out["launches"] != 3 * (N_FRAMES - 1):
         fail(f"K1 launched {out['launches']} times in the slice, expected "
              f"{3 * (N_FRAMES - 1)}")
+    return out["launches"]
 
+
+def check_system_phase(gm, Ts_sys, frames_sys, timing) -> int:
+    """The system phase, eager (it records K1's real calls), and K1 on
+    those calls; returns K1's launches."""
     t0 = time.perf_counter()
     sys_out = run_system(frames_sys)
     print(f"system: {SYSTEM_FRAMES} frames in {time.perf_counter() - t0:.1f} s")
     check_system(Ts_sys, sys_out)
-    if len(sys_out["real_calls"]) != len(TRACKING_SEARCHES) + 1:
-        fail(f"recorded {len(sys_out['real_calls'])} of K1's real calls, "
+    check_real_calls(gm, sys_out, timing)
+    return sys_out["launches"]
+
+
+def check_real_calls(gm, out, timing, phase=None):
+    """K1 on a run's recorded real calls (the init match and the three
+    searches of a tracked frame), bit for bit and timed as in step 2, into
+    `timing` under their labels, prefixed with `phase`."""
+    if len(out["real_calls"]) != len(TRACKING_SEARCHES) + 1:
+        fail(f"recorded {len(out['real_calls'])} of K1's real calls, "
              f"expected {len(TRACKING_SEARCHES) + 1}")
-    for label, a, gated in sys_out["real_calls"]:
+    for label, a, gated in out["real_calls"]:
+        label = label if phase is None else f"{phase}, {label}"
         n, p = a["q_bits"].shape[0], a["d_bits"].shape[0]
         timing[label] = check_case(gm, f"real call, {label}: N={n} P={p} "
                                    f"gated={gated}", a, gated)
 
-    # the lines phase: (a) the defaults with lines on, (b) the lines-help
-    # widths with lines on and off, (c) detect_lines on the card vs the CPU
+
+def check_later_phases(gm, device, timing, launches):
+    """The lines, relocalization, depth and loop phases, graphed, and K1
+    on the first relocalization attempt's and the first Sim3 stage's real
+    calls; adds each run's K1 launches to `launches`."""
+    new_calls = []
+    # (a) the defaults with lines on, (b) the lines-help widths with
+    # lines on and off, (c) detect_lines on the card vs the CPU
     t0 = time.perf_counter()
     Ts_ln, frames_ln = render_lines_sequence()
     print(f"rendered the {LINES_FRAMES}-frame line-rich sequence in "
@@ -1200,20 +1544,20 @@ def main() -> int:
     print(f"lines (a): {LINES_FRAMES} frames in "
           f"{time.perf_counter() - t0:.1f} s")
     check_system(Ts_ln, lines_out, "lines (a)", min_lines=1)
+    launches["lines (a)"] = lines_out["launches"]
     small = {}
     for use_lines in (True, False):
         t0 = time.perf_counter()
-        small[use_lines] = run_system(frames_ln, lines_config(True, use_lines),
-                                      record_calls=False)
-        print(f"lines (b), lines {'on' if use_lines else 'off'}: "
-              f"{LINES_FRAMES} frames in {time.perf_counter() - t0:.1f} s")
+        small[use_lines] = run_system(
+            frames_ln, lines_config(True, use_lines), record_calls=False)
+        name = f"lines (b), lines {'on' if use_lines else 'off'}"
+        print(f"{name}: {LINES_FRAMES} frames in "
+              f"{time.perf_counter() - t0:.1f} s")
+        launches[name] = small[use_lines]["launches"]
     check_lines_small(Ts_ln, small[True], small[False])
     check_detect_on_card(frames_ln)
-    line_launches = lines_out["launches"] + sum(o["launches"]
-                                                for o in small.values())
 
-    # the relocalization phase: tests/test_reloc_e2e.py's kidnap at the
-    # defaults
+    # tests/test_reloc_e2e.py's kidnap at the defaults
     t0 = time.perf_counter()
     Ts_rl, frames_rl = render_reloc_sequence()
     print(f"rendered the {RELOC_FRAMES}-frame kidnap sequence in "
@@ -1229,12 +1573,15 @@ def main() -> int:
     rl_out = run_system(frames_rl, reloc_config(), record_calls=False,
                         drive=lambda slam, step: reloc.update(run_kidnap(
                             slam, frames_rl, Ts_rl, kidnap, step)))
-    print(f"reloc: {RELOC_FRAMES} frames in {time.perf_counter() - t0:.1f} s")
+    print(f"reloc: {RELOC_FRAMES} frames in "
+          f"{time.perf_counter() - t0:.1f} s")
     check_reloc(rl_out, reloc)
+    launches["reloc"] = rl_out["launches"]
+    new_calls += list(zip(RELOC_SEARCHES,
+                          rl_out["stage_calls"]["reloc"]))
 
-    # the depth phases: tests/test_depth_sensors.py's RGB-D and stereo runs
-    # at the defaults
-    depth_out = {}
+    # tests/test_depth_sensors.py's RGB-D and stereo runs at the
+    # defaults
     for kind, render in (("rgbd", render_rgbd_sequence),
                          ("stereo", render_stereo_sequence)):
         t0 = time.perf_counter()
@@ -1242,30 +1589,33 @@ def main() -> int:
         print(f"rendered the {len(Ts_d)}-frame {kind} sequence in "
               f"{time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
-        depth_out[kind] = run_system(frames_d, depth_config(kind),
-                                     record_calls=False,
-                                     track=f"track_{kind}")
+        d_out = run_system(frames_d, depth_config(kind),
+                           record_calls=False, track=f"track_{kind}")
         print(f"{kind}: {len(Ts_d)} frames in "
               f"{time.perf_counter() - t0:.1f} s")
-        check_depth(kind, Ts_d, depth_out[kind])
+        check_depth(kind, Ts_d, d_out)
+        launches[kind] = d_out["launches"]
         if kind == "stereo":
-            check_stereo_depth(depth_out[kind]["slam"],
+            check_stereo_depth(d_out["slam"],
                                frames_d[STEREO_DEPTH_FRAME], dep[0])
 
-    # the loop phase: tests/test_loop_closure_e2e.py's circuit at its widths
-    # (a) and at the defaults (b)
+    loop_bad = []
+    # tests/test_loop_closure_e2e.py's circuit at its widths (a) and at
+    # the defaults (b)
     t0 = time.perf_counter()
     Ts_lp, frames_lp = render_loop_sequence()
     print(f"rendered the {LOOP_FRAMES}-frame circuit in "
           f"{time.perf_counter() - t0:.1f} s")
-    # whether the circuit closes at the defaults turns on which candidates
-    # become consistent, and the order of float atomics (BA's index_add_)
-    # moves the trajectory from run to run: 9 of 10 runs closed (PERF.md).
-    # The loop phase runs torch's deterministic algorithms, so it repeats.
-    loops, loop_bad = {}, []
+    # whether the circuit closes at the defaults turns on which
+    # candidates become consistent, and the order of float atomics
+    # (BA's index_add_) moves the trajectory from run to run: 9 of 10
+    # runs closed (PERF.md). The loop phase runs torch's deterministic
+    # algorithms, so it repeats.
+    loops = {}
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
-        for name, small_widths in (("loop (a)", True), ("loop (b)", False)):
+        for name, small_widths in (("loop (a)", True),
+                                   ("loop (b)", False)):
             t0 = time.perf_counter()
             loops[name] = run_system(frames_lp, loop_config(small_widths),
                                      record_calls=False)
@@ -1273,52 +1623,28 @@ def main() -> int:
                   f"{time.perf_counter() - t0:.1f} s")
             loop_bad += [f"{name}: {b}"
                          for b in check_loop(name, Ts_lp, loops[name])]
+            launches[name] = loops[name]["launches"]
     finally:
         torch.use_deterministic_algorithms(False)
-
-    # K1 on the calls of the new stages: the first relocalization attempt,
     # the first Sim3 stage at the default widths (else at (a)'s)
     sim3_run = loops["loop (b)"] if "sim3" in loops["loop (b)"][
         "stage_calls"] else loops["loop (a)"]
-    new_calls = list(zip(RELOC_SEARCHES, rl_out["stage_calls"]["reloc"])) \
-        + list(zip(SIM3_SEARCHES, sim3_run["stage_calls"]["sim3"]))
-    if len(new_calls) != 4 or len(sim3_run["stage_calls"]["sim3"]) != 2:
-        fail(f"recorded {len(new_calls)} K1 calls of the relocalization "
-             f"and Sim3 stages, expected 4")
+    sim3_calls = sim3_run["stage_calls"].get("sim3", [])
+    if len(sim3_calls) != 2:
+        fail(f"recorded {len(sim3_calls)} K1 calls of the first Sim3 "
+             f"stage, expected 2")
+    new_calls += list(zip(SIM3_SEARCHES, sim3_calls))
+
+    # K1 on the calls of the relocalization and Sim3 stages
+    if len(new_calls) != 4:
+        fail(f"recorded {len(new_calls)} K1 calls of the first "
+             f"relocalization attempt and Sim3 stage, expected 4")
     for label, (a, gated) in new_calls:
         n, p = a["q_bits"].shape[0], a["d_bits"].shape[0]
         timing[label] = check_case(gm, f"real call, {label}: N={n} P={p} "
                                    f"gated={gated}", a, gated)
     if loop_bad:
         fail("; ".join(loop_bad))
-    new_launches = rl_out["launches"] + sum(o["launches"]
-                                            for o in loops.values()) \
-        + sum(o["launches"] for o in depth_out.values())
-    print(f"K1 launches: slice {out['launches']}, system "
-          f"{sys_out['launches']}, lines (a) {lines_out['launches']}, lines "
-          f"(b) {small[True]['launches']} / {small[False]['launches']}, "
-          f"reloc {rl_out['launches']}, loop (a) "
-          f"{loops['loop (a)']['launches']}, loop (b) "
-          f"{loops['loop (b)']['launches']}, rgbd "
-          f"{depth_out['rgbd']['launches']}, stereo "
-          f"{depth_out['stereo']['launches']}")
-
-    head = timing[(1024, 12288, True)]
-    print(f"card: {card_line()}")
-    print(json.dumps({"kernels": [{
-        "name": "gated_hamming_best2", "route": "cuda",
-        "source": "plslam_tpu_torch/csrc/gated_hamming.cu",
-        "replaces": "plslam_tpu/ops/pallas_match.py:115",
-        "launches": out["launches"] + sys_out["launches"] + line_launches
-        + new_launches,
-        "max_abs_err": max(c["err"] for c in timing.values()),
-        "ms": head["ms"], "plain_ms": head["plain_ms"],
-        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-        "library_ms": head["library_ms"]}]}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
-    return 0
 
 
 if __name__ == "__main__":

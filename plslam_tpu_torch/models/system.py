@@ -24,32 +24,47 @@ JAX package, whose global BA is monocular unless the sensor was switched
 this way and stays monocular after map growth, the port's global BA has
 stereo edges whenever the System has a depth sensor (ROADMAP Queue 3).
 
-Host reads: a tracked frame reads back one 6-scalar row (`_resolve_pending`);
-an initialization attempt reads its feature and match counts, its success
-flag and, once it succeeds, the triangulated points; a relocalization
-attempt reads its verdict; a depth-sensor initialization reads its valid
-keypoint and landmark counts; loop detection reads its candidates one keyframe
-late from pinned memory, and a consistent candidate's Sim3 stage and
-correction read their counts and the covisibility. A frame given as a host
-array is copied from pageable memory, which also waits for the device's
-queue; tracking, global-BA rounds and the keyframe chain never wait.
-Options that need modules not ported yet raise `NotImplementedError` naming
-their ROADMAP item.
+Dispatch, as the JAX package's (`use_jit` there, `use_graphs` here): on
+CUDA the per-frame step runs as CUDA graphs (`models/step_graph.py`), one
+per program the JAX package dispatches: `track_monocular` replays the
+extraction graph (points and line segments) and the tracking graph
+(`track_local_map` with `update_point_stats`; it also serves the depth
+sensors); `track_synced` and `track_chunked` replay one graph of extraction
+and tracking per frame, `track_chunked` B of them back to back into the
+chunk's stacked outputs, its decisions resolved one chunk late.
+`async_pipeline` defers the per-frame decisions the same way, `async_depth`
+frames per readback. The keyframe chain, initialization, relocalization,
+loop closing and the global BA run eagerly.
+
+Host reads: a tracked frame's 6 decision scalars are copied to pinned memory
+without waiting and read when its decisions resolve (at once, one frame or
+chunk late, or `async_depth` frames late); an initialization attempt reads
+its feature and match counts, its success flag and, once it succeeds, the
+triangulated points; a relocalization attempt reads its verdict; a
+depth-sensor initialization reads its valid keypoint and landmark counts;
+loop detection reads its candidates one keyframe late from pinned memory,
+and a consistent candidate's Sim3 stage and correction read their counts
+and the covisibility. A frame given as a host array goes to the device
+through pinned memory without waiting; tracking, global-BA rounds and the
+keyframe chain never wait. Options that need modules not ported yet raise
+`NotImplementedError` naming their ROADMAP item.
 """
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass
 from functools import partial
+from types import SimpleNamespace
 from typing import Optional
 
 import numpy as np
 import torch
+import torch.utils._pytree as pytree
 
 from ..geometry import camera, se3, triangulation
 from ..mapstate import state as mstate
-from ..models import mapping, tracking
-from ..models.loop_closing import LoopClosing
+from ..models import mapping, step_graph, tracking
+from ..models.loop_closing import LoopClosing, _to_host_async
 from ..ops import extract, lines, stereo
 from ..optim import local_ba
 from ..solvers import twoview
@@ -183,7 +198,6 @@ LOST = "LOST"
 
 # options whose modules are not ported yet: (test, what, ROADMAP item)
 _UNPORTED = (
-    (lambda c: c.async_pipeline, "async_pipeline", 15),
     (lambda c: c.subpixel, "subpixel (keypoint refinement)", 16),
 )
 
@@ -196,12 +210,16 @@ def _not_ported(what: str, item: int):
 class System:
     """Point-and-line SLAM on one device, `cuda` unless `device` names
     another (the CPU runs the kernels' plain versions). Public surface as
-    the JAX package's: `track_monocular`, `track_rgbd`, `track_stereo`,
-    `trajectory`, `poses`, the TUM/KITTI trajectory writers,
-    `n_map_points`, `n_keyframes`, `reset`, `flush`, `finish_gba`,
-    `run_global_ba`, `shutdown` and the localization-mode toggles."""
+    the JAX package's: `track_monocular`, `track_synced`, `track_chunked`,
+    `track_rgbd`, `track_stereo`, `trajectory`, `poses`, the TUM/KITTI
+    trajectory writers, `n_map_points`, `n_keyframes`, `reset`, `flush`,
+    `finish_gba`, `run_global_ba`, `shutdown` and the localization-mode
+    toggles. On CUDA the per-frame steps replay as CUDA graphs unless
+    `use_graphs` is False (the JAX package's `use_jit`); `graphs` holds
+    their counts."""
 
-    def __init__(self, config: Optional[SLAMConfig] = None, device=None):
+    def __init__(self, config: Optional[SLAMConfig] = None, device=None,
+                 use_graphs: bool = True):
         config = SLAMConfig() if config is None else config
         for test, what, item in _UNPORTED:
             if test(config):
@@ -248,14 +266,18 @@ class System:
                     (m > 127).astype(np.float32)).to(self.device)
 
         # the stages as attributes, so that a caller can wrap one (to time
-        # it, for example)
+        # it, for example); the per-frame steps are graphed, and a wrapper
+        # that synchronizes goes around them, never inside
         cam = self.cam
-        self._track_update = partial(
-            tracking.track_local_map, cam, scale_factors=self.scale_factors,
+        self._track_impl = partial(
+            _track_and_update, cam, scale_factors=self.scale_factors,
             sigma2_levels=self.sigma2, n_levels=c.n_levels,
             scale=c.scale_factor, line_info=c.track_line_info,
-            max_step_t=c.max_step_t, max_step_r=c.max_step_r,
-            update_stats=True)
+            max_step_t=c.max_step_t, max_step_r=c.max_step_r)
+        self.graphs = step_graph.StepGraphs(self.device, enabled=use_graphs)
+        self._extract_step = self.graphs.step(self._extract_impl)
+        self._track_update = self.graphs.step(self._track_impl, bound=0)
+        self._frame_step = self.graphs.step(self._frame_impl, bound=0)
         self._match_frames = tracking.match_frames
         self._init_two_view = partial(twoview.initialize_two_view,
                                       K=camera.intrinsics(cam, self.device))
@@ -308,6 +330,10 @@ class System:
         # the local-map anchor after a relocalization (its keyframe), until
         # the next keyframe; None = the latest keyframe
         self._anchor_kf = None
+        self._anchor_t = None      # (keyframe, its 0-d tensor)
+        # tracked frames and chunks whose decisions are not resolved yet
+        self._pending: list[tuple] = []
+        self._chunk_pending: list[tuple] = []
         self._occupancy = (0, 0)   # (n_pt, n_ln) of the last readback
         self.n_growths = 0
         self._gba = None           # the in-flight global BA
@@ -327,21 +353,37 @@ class System:
         self.stats: list[dict] = []
 
     def _image(self, img):
-        """A grayscale frame (numpy or tensor, uint8 on the wire) as a
-        float32 tensor on the device."""
+        """Grayscale frames (numpy or tensor; numpy as uint8, as they
+        travel) on the device. A host frame goes through pinned memory, so
+        its copy does not wait for the device."""
         if not torch.is_tensor(img):
             img = torch.from_numpy(np.asarray(img).astype(np.uint8))
-        return img.to(self.device).to(torch.float32)
+        if img.device == self.device or self.device.type != "cuda":
+            return img.to(self.device)
+        host = torch.empty(img.shape, dtype=img.dtype, pin_memory=True)
+        host.copy_(img)
+        return host.to(self.device, non_blocking=True)
 
     def _extract(self, img, with_lines: bool = True):
         """(point features with undistorted keypoints, line features with
         undistorted endpoints or None) of one grayscale frame; lines only
-        with `use_lines` and `with_lines`."""
-        img = self._image(img)
+        with `use_lines` and `with_lines`. One graph on CUDA."""
+        return self._extract_step(self._image(img), with_lines=with_lines)
+
+    def _extract_impl(self, img, with_lines: bool = True):
+        img = img.to(torch.float32)
         f = self.extractor(img)
         f = f._replace(uv_un=camera.undistort_pixels(self.cam, f.uv))
         return f, self._detect_lines(img) if self.cfg.use_lines \
             and with_lines else None
+
+    def _frame_impl(self, ms, img, T_last, velocity, anchor_kf):
+        """Extraction and tracking of one frame: (TrackResult, point
+        features, line features or None)."""
+        feats, lfeats = self._extract_impl(img)
+        res = self._track_impl(ms, feats, T_last, lfeats=lfeats,
+                               velocity=velocity, anchor_kf=anchor_kf)
+        return res, feats, lfeats
 
     def _detect_lines(self, img):
         """Line features of a float32 frame, endpoints undistorted and the
@@ -367,11 +409,101 @@ class System:
         self.timings.append(time.perf_counter() - t0)
         return T
 
-    def track_chunked(self, imgs, timestamps):
-        raise _not_ported("track_chunked", 15)
-
     def track_synced(self, img, timestamp: float):
-        raise _not_ported("track_synced", 15)
+        """The live-camera path: one frame in, its pose out, its keyframe
+        and LOST decisions resolved before returning. Extraction and
+        tracking run as one graph (the B = 1 case of `track_chunked`) and
+        the decision scalars are read back at once; while not OK it is
+        `track_monocular`."""
+        if self.state != OK:
+            return self.track_monocular(img, timestamp)
+        t0 = time.perf_counter()
+        out = self.track_chunked(self._image(img)[None], [timestamp])
+        self._resolve_chunks(keep=0)
+        if self.timings:
+            self.timings[-1] = time.perf_counter() - t0
+        return out[0]
+
+    def track_chunked(self, imgs, timestamps):
+        """A block of consecutive frames (B, H, W) (numpy uint8 or tensor)
+        with their B timestamps: B replays of the extraction and tracking
+        graph back to back, each frame tracked from the previous one's pose
+        and velocity on the map as the previous one left it, its outputs
+        stacked into the chunk's buffers; one global-BA round per chunk.
+        The keyframe and LOST decisions are read back one chunk late (the
+        bounded lag of `async_pipeline`, over a block). Falls back to
+        `track_monocular` per frame while not initialized or lost.
+
+        Returns the (B, 4, 4) poses as a tensor on the fast path, a list of
+        per-frame results on the fallback path."""
+        B = int(imgs.shape[0])
+        if self.state != OK:
+            return [self.track_monocular(imgs[j], timestamps[j])
+                    for j in range(B)]
+        imgs = self._image(imgs)
+        t0 = time.perf_counter()
+        ids = [self.frame_id + 1 + j for j in range(B)]
+        self.frame_id += B
+        Ts, T_rels, scalars, m_pt, m_ln, feats_s, lfeats_s = \
+            self._track_chunk(imgs)
+        self._step_gba()
+        ref = self.n_kf_host - 1
+        traj_start = len(self._traj)
+        for j, ts in enumerate(timestamps):
+            self._log_frame(ts, T_rels[j], ref)
+        self._chunk_pending.append(
+            (_to_host_async(scalars), Ts, m_pt, m_ln, feats_s, lfeats_s,
+             list(timestamps), ids, traj_start))
+        if len(self._chunk_pending) > 1:
+            self._resolve_chunks(keep=1)
+        dt = (time.perf_counter() - t0) / B
+        self.timings.extend([dt] * B)
+        return Ts
+
+    def _track_chunk(self, imgs):
+        """The chunk's frames through `_frame_step`, each replay's outputs
+        copied into the chunk's stacks before the next: (Ts, T_rels,
+        scalars, matched_pt, matched_ln, point features, line features),
+        each stacked over the B frames. Sets T_last and the velocity to
+        the last frame's."""
+        B = int(imgs.shape[0])
+        T, vel, anchor = self.T_last, self.velocity, self._anchor_arg()
+        stacks = None
+        for j in range(B):
+            res, f, lf = self._frame_step(self.ms, imgs[j], T, vel, anchor,
+                                          clone=False)
+            out = (res.T, res.T_rel, res.scalars, res.matched_pt,
+                   res.matched_ln, f, lf)
+            if stacks is None:
+                stacks = pytree.tree_map_only(
+                    torch.Tensor, lambda t: t.new_empty((B,) + t.shape), out)
+            for dst, src in zip(step_graph.tensors_of(stacks),
+                                step_graph.tensors_of(out)):
+                dst[j].copy_(src)
+            T, vel = stacks[0][j], res.velocity
+        self.T_last, self.velocity = T, vel.clone()
+        return stacks
+
+    def _resolve_chunks(self, keep: int = 0):
+        """The decisions of all but the `keep` newest chunks, frame by frame
+        under each frame's own id, from one readback per chunk, through
+        `_resolve_frame` with the cheap keyframe pre-gate."""
+        while len(self._chunk_pending) > keep:
+            (((host,), event), Ts, m_pt, m_ln, feats_s, lfeats_s, tss, ids,
+             traj_start) = self._chunk_pending.pop(0)
+            if event is not None:
+                event.synchronize()
+            saved_fid = self.frame_id
+            for j, row in enumerate(host.tolist()):
+                self.frame_id = ids[j]
+                pick = partial(pytree.tree_map_only, torch.Tensor,
+                               lambda t, j=j: t[j])
+                res_j = SimpleNamespace(T=Ts[j], matched_pt=m_pt[j],
+                                        matched_ln=m_ln[j])
+                self._resolve_frame(row, res_j, pick(feats_s),
+                                    pick(lfeats_s), tss[j],
+                                    traj_i=traj_start + j, pregate=True)
+            self.frame_id = saved_fid
 
     def track_rgbd(self, img, depth, timestamp: float):
         """`System::TrackRGBD`: one grayscale frame and its registered depth
@@ -403,7 +535,9 @@ class System:
         im_l, im_r = self._image(img_left), self._image(img_right)
         feats, lfeats = self._extract(im_l)
         feats_r, _ = self._extract(im_r, with_lines=False)
-        d, _, ok = self._stereo_match(feats, feats_r, im_l, im_r)
+        d, _, ok = self._stereo_match(feats, feats_r,
+                                      im_l.to(torch.float32),
+                                      im_r.to(torch.float32))
         self._set_depth(feats, torch.where(ok, d, -1.0))
         T = self._track_depth_frame(feats, lfeats, timestamp)
         self.timings.append(time.perf_counter() - t0)
@@ -539,40 +673,79 @@ class System:
             return self._relocalize_frame(feats, timestamp)
         stereo_kw = {} if self._kp_ur is None else dict(kp_ur=self._kp_ur,
                                                         bf=self._bf)
-        res, self.ms = self._track_update(self.ms, feats, self.T_last,
-                                          lfeats=lfeats,
-                                          velocity=self.velocity,
-                                          anchor_kf=self._anchor_arg(),
-                                          **stereo_kw)
+        res = self._track_update(self.ms, feats, self.T_last, lfeats=lfeats,
+                                 velocity=self.velocity,
+                                 anchor_kf=self._anchor_arg(), **stereo_kw)
         self._step_gba()
         self.velocity = res.velocity
         self.T_last = res.T
         self._log_frame(timestamp, res.T_rel, self.n_kf_host - 1)
-        self._resolve_pending(res, feats, lfeats, timestamp)
+        # the decision scalars start for the host now; they are read when
+        # the frame resolves: at once, or `async_depth` frames late
+        self._pending.append((res, feats, lfeats, timestamp, self._kp_depth,
+                              _to_host_async(res.scalars)))
+        if not self.cfg.async_pipeline:
+            self._resolve_pending()
+        elif len(self._pending) > self.cfg.async_depth:
+            self._resolve_pending(keep=1)
         return res.T
 
-    def _resolve_pending(self, res, feats, lfeats, timestamp):
-        """The frame's LOST / keyframe decisions, from its one readback."""
-        n_inl, n_ln_inl, n_matched, nref3, n_pt, n_ln = res.scalars.tolist()
+    def _resolve_pending(self, keep: int = 0):
+        """The LOST / keyframe decisions of all but the `keep` newest
+        tracked frames, in order, each from its scalars' copy through
+        `_resolve_frame` (a keyframe is made from the frame's own features
+        and depths)."""
+        batch, self._pending = (self._pending[:len(self._pending) - keep],
+                                self._pending[len(self._pending) - keep:])
+        kp_depth_now = self._kp_depth
+        for res, feats, lfeats, timestamp, kp_depth, ((host,), event) in batch:
+            if event is not None:
+                event.synchronize()
+            self._kp_depth = kp_depth
+            self._resolve_frame(host.tolist(), res, feats, lfeats, timestamp)
+        self._kp_depth = kp_depth_now
+
+    def _resolve_frame(self, row, res, feats, lfeats, timestamp,
+                       traj_i: Optional[int] = None, pregate: bool = False):
+        """One tracked frame's decisions from its six scalars `row`: LOST
+        below `min_track_inliers` (marking the trajectory entry `traj_i`
+        lost: a chunk's later poses are not trusted, the export repeats the
+        last good pose), else OK and maybe a keyframe. With `pregate`,
+        `_maybe_keyframe` is called only when the host-side pre-gate (the
+        cadence and the weakening test) passes, as the JAX package's chunk
+        resolution does."""
+        n_inl, n_ln_inl, n_matched, nref3, n_pt, n_ln = row
         self._occupancy = (n_pt, n_ln)
         if n_inl < self.cfg.min_track_inliers:
             self.state = LOST
+            if traj_i is not None:
+                ts_e, _, ref_e, _ = self._traj[traj_i]
+                self._traj[traj_i] = (ts_e, None, ref_e, True)
             self.stats.append({"inliers": n_inl, "kf": False, "lost": True})
             return
         self.state = OK
-        made_kf = False if self.cfg.localization_only else \
-            self._maybe_keyframe(feats, lfeats, res, timestamp, n_inl,
-                                 n_matched, nref3)
+        made_kf = False
+        if not self.cfg.localization_only:
+            ref_base = nref3 if nref3 >= 30 else max(self.ref_kf_matches, 15)
+            if not pregate or (
+                    n_inl < self.cfg.kf_ref_ratio * ref_base and n_inl > 15
+                    and self.frame_id - self.last_kf_frame
+                    >= self.cfg.kf_min_interval):
+                made_kf = self._maybe_keyframe(feats, lfeats, res, timestamp,
+                                               n_inl, n_matched, nref3)
         self.stats.append({"inliers": n_inl, "kf": made_kf, "lost": False,
                            "line_inliers": n_ln_inl})
 
     def _anchor_arg(self):
         """The local-map anchor for tracking: None (the latest keyframe) or
-        the keyframe the last relocalization landed in, as a 0-d tensor."""
+        the keyframe the last relocalization landed in, as a 0-d tensor
+        made once per anchor."""
         if self._anchor_kf is None:
             return None
-        return torch.full((), self._anchor_kf, dtype=torch.long,
-                          device=self.device)
+        if self._anchor_t is None or self._anchor_t[0] != self._anchor_kf:
+            self._anchor_t = (self._anchor_kf, torch.full(
+                (), self._anchor_kf, dtype=torch.long, device=self.device))
+        return self._anchor_t[1]
 
     def _relocalize_frame(self, feats, timestamp):
         """A LOST frame: on a map of at most 5 keyframes (likely junk) the
@@ -758,9 +931,11 @@ class System:
         """`System::Shutdown`: no threads to join."""
 
     def flush(self):
-        """Resolve the pending (one keyframe late) loop detection and run
-        any in-flight global BA to its end; per-frame decisions resolve
-        within their frame."""
+        """Resolve the deferred per-frame and per-chunk decisions and the
+        pending (one keyframe late) loop detection, and run any in-flight
+        global BA to its end."""
+        self._resolve_pending(keep=0)
+        self._resolve_chunks(keep=0)
         if self.loop_closer is not None and self.n_kf_host > 0:
             self.ms, closed = self.loop_closer.finish(self.ms,
                                                       seed=self.cfg.seed)
@@ -822,6 +997,13 @@ class System:
                 Twc = np.linalg.inv(T)
                 f.write(" ".join(f"{v:.6e}" for v in Twc[:3, :4].reshape(-1))
                         + "\n")
+
+
+def _track_and_update(cam, ms, feats, T_last, **kwargs):
+    """`track_local_map` with the map's found / visible counts updated in
+    place; returns the TrackResult."""
+    return tracking.track_local_map(cam, ms, feats, T_last,
+                                    update_stats=True, **kwargs)[0]
 
 
 def _write_tum(path, items):

@@ -25,6 +25,7 @@ from pathlib import Path
 import torch
 
 from . import hamming
+from ..models import step_graph
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "plslam_tpu_torch"
@@ -176,4 +177,5 @@ def gated_hamming_best2(q_bits, q_uv, q_oct, q_valid, d_bits, d_uv, d_radius,
     return idx, best2[0], best2[1]
 
 
-gated_hamming_best2.launches = 0
+# a replay of a captured step adds the launches its capture recorded
+step_graph.counted(gated_hamming_best2)

@@ -104,13 +104,14 @@ def test_kernel_matches_plain_at_match_frames_shape():
     pytest.param(True, "stereo", id="stereo")])
 def test_tracking_and_keyframe_chain_never_wait_for_the_device(use_lines,
                                                                sensor):
-    """The System's tracking step and keyframe chain, at the smoke run's
-    configuration with lines off and on (line detection too), and with
-    lines on through `track_rgbd` and `track_stereo` (the keypoint depth,
-    the stereo search, tracking on stereo edges, the depth chain), under
-    torch's sync debug mode: any op that waits for the device raises. Runs
-    until the first keyframe of the chain (monocular) or the second
-    keyframe after the depth initialization."""
+    """The System's extraction (with line detection), tracking step and
+    keyframe chain, eager, at the smoke run's configuration with lines off
+    and on, and with lines on through `track_rgbd` and `track_stereo` (the
+    keypoint depth, the stereo search, tracking on stereo edges, the depth
+    chain), under torch's sync debug mode: any op that waits for the device
+    raises (the precondition of capturing the per-frame steps). Runs until
+    the first keyframe of the chain (monocular) or the second keyframe
+    after the depth initialization."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     import dataclasses
@@ -122,7 +123,7 @@ def test_tracking_and_keyframe_chain_never_wait_for_the_device(use_lines,
         cfg = dataclasses.replace(system_config(), use_lines=use_lines)
     else:
         cfg = chip_smoke.depth_config(sensor)
-    slam = System(cfg, device=torch.device("cuda", 0))
+    slam = System(cfg, device=torch.device("cuda", 0), use_graphs=False)
 
     def no_sync(fn):
         def wrapper(*args, **kwargs):
@@ -133,7 +134,7 @@ def test_tracking_and_keyframe_chain_never_wait_for_the_device(use_lines,
                 torch.cuda.set_sync_debug_mode("default")
         return wrapper
 
-    for attr in ("_track_update", "_process_kf", "_detect_lines",
+    for attr in ("_extract", "_track_update", "_process_kf", "_detect_lines",
                  "_depth_at", "_stereo_match", "_set_depth"):
         setattr(slam, attr, no_sync(getattr(slam, attr)))
     if sensor == "mono":
@@ -215,7 +216,7 @@ def test_loop_closing_and_global_ba_never_wait_for_the_device():
     slam = System(dataclasses.replace(
         system_config(), kf_max_interval=2, kf_min_interval=1,
         kf_ref_ratio=2.0, periodic_gba_every_kf=4),
-        device=torch.device("cuda", 0))
+        device=torch.device("cuda", 0), use_graphs=False)
 
     def no_sync(fn):
         def wrapper(*args, **kwargs):
@@ -238,3 +239,77 @@ def test_loop_closing_and_global_ba_never_wait_for_the_device():
     assert slam.state == "OK" and slam.n_kf_host >= 12
     assert slam._gba is not None and slam._gba["round"] == 1
     assert slam.loop_closer._pending_detect is not None
+
+
+def _system_frames():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: CUDA graphs and the kernel")
+    from chip_smoke import render_system_sequence
+    return render_system_sequence(12)[1]
+
+
+@pytest.mark.cuda
+def test_graphed_tracking_step_matches_eager_and_recaptures_after_growth():
+    """The tracking graph against the eager step on the same frame, pose,
+    velocity and map (a copy each), ROADMAP item 7's bars: T within 1e-4,
+    inliers within 2, matched_pt >= 99% equal; one capture, three replays,
+    then a growth event and a second capture on the grown map, still
+    within the bars (`chip_smoke.check_graphed_step`)."""
+    import chip_smoke
+    frames = _system_frames()
+    got = chip_smoke.check_graphed_step(frames, chip_smoke.system_config())
+    assert (got["captures"], got["replays"]) == (2, 3)
+    assert got["T"] <= 1e-4 and got["inliers"] <= 2
+    assert got["matched"] >= 0.99
+
+
+@pytest.mark.cuda
+def test_chunk_frames_do_not_alias():
+    """One graphed chunk of 6 against the eager chunk from the same state:
+    every frame keeps its own pose and the poses agree within 1e-4, with
+    the same decisions (`chip_smoke.check_chunk_frames`)."""
+    import chip_smoke
+    frames = _system_frames()
+    got = chip_smoke.check_chunk_frames(frames, chip_smoke.system_config())
+    assert got["T"] <= 1e-4 and got["captures"] >= 1
+
+
+@pytest.mark.cuda
+def test_graphed_system_counts_k1_replays():
+    """A graphed System over 10 frames: one capture each of the extraction
+    and the tracking graph, one more of the tracking graph after each
+    growth event (at the defaults the line capacity grows on the first
+    decision), a replay on every other call, and K1's count as in an eager
+    run: 3 launches per tracked frame (as the capture recorded them) and
+    one per initialization match."""
+    from chip_smoke import system_config
+    from plslam_tpu_torch.models.system import System
+    frames = _system_frames()
+    slam = System(system_config(), device=torch.device("cuda", 0))
+    matches, match = [], slam._match_frames
+    slam._match_frames = lambda *a: (matches.append(1), match(*a))[1]
+    before = gated_match.gated_hamming_best2.launches
+    tracked = 0
+    for i, img in enumerate(frames[:10]):
+        was = slam.state
+        slam.track_monocular(img, i / 30.0)
+        tracked += was == "OK"
+    assert tracked >= 3 and slam.n_growths == 1
+    assert slam.graphs.captures == 2 + slam.n_growths
+    assert slam.graphs.replays == (10 - 1) + (tracked - 1 - slam.n_growths)
+    assert gated_match.gated_hamming_best2.launches - before \
+        == 3 * tracked + len(matches)
+
+
+@pytest.mark.cuda
+def test_a_failed_capture_raises():
+    """A step that waits for the device cannot be captured: the capture
+    raises, and nothing falls back to eager execution."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: CUDA graphs")
+    from plslam_tpu_torch.models import step_graph
+    graphs = step_graph.StepGraphs(torch.device("cuda", 0))
+    step = graphs.step(lambda x: x * int(x.sum().item()))
+    with pytest.raises(RuntimeError):
+        step(torch.ones(4, device="cuda"))
+    assert graphs.captures == 0

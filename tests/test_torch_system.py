@@ -13,7 +13,8 @@ Sim3-aligned trajectories within 1% of the span of each other; with growth
 on, the same growth events. Plus the public surface: `SLAMConfig` and
 `from_yaml` as the JAX package's, the trajectory writers, a line mask read
 from `mask_path` as the JAX package reads it, relocalization of a LOST
-frame, and `NotImplementedError` for every option not ported yet."""
+frame, and `NotImplementedError` for every option not ported yet
+(the dispatch paths: tests/test_torch_dispatch.py)."""
 import dataclasses
 from pathlib import Path
 
@@ -190,20 +191,11 @@ def test_mask_path_reaches_detect_lines(tmp_path):
     assert (lf.uv_b.numpy()[v, 0] > 312).all()
 
 
-@pytest.mark.parametrize("option,value,item", [
-    ("async_pipeline", True, 15), ("subpixel", True, 16)])
+@pytest.mark.parametrize("option,value,item", [("subpixel", True, 16)])
 def test_unported_options_raise(option, value, item):
     cfg = tsys.SLAMConfig(**{**SMALL, option: value})
     with pytest.raises(NotImplementedError, match=f"item {item}$"):
         tsys.System(cfg, device="cpu")
-
-
-@pytest.mark.parametrize("method,args,item", [
-    ("track_chunked", (None, None), 15), ("track_synced", (None, 0.0), 15)])
-def test_unported_entry_points_raise(method, args, item):
-    slam = tsys.System(tsys.SLAMConfig(**SMALL), device="cpu")
-    with pytest.raises(NotImplementedError, match=f"item {item}$"):
-        getattr(slam, method)(*args)
 
 
 def test_system_defaults_construct_on_cuda_only():
