@@ -99,7 +99,39 @@ line detection as part of extraction.
    the device ms of one `stereo_match` call beside its Hamming product's.
    Both depth phases print per-stage host ms (extraction, the stereo search,
    tracking, the keyframe chain, local BA), counts, ATE and peak device
-   memory.
+   memory;
+10. the map I/O check: the system phase's map through `System.save_map`
+   into a fresh System's `load_map`, every field bit-equal, and 4 more
+   frames (the sequence's last 4, backwards) tracked by both Systems from
+   the same tracking state, poses within 1e-4;
+11. the multistream phase: 16 streams at the TUM fr1 defaults (640x480,
+   1024 features, 8 levels, 48 keyframes x 12288 points, lines on), stream
+   s rendering `make_scene(seed=100 + s)` along the slice's orbit (rendered
+   in worker processes), each bootstrapped with a keyframe and points from
+   frame 0's rendered depth (a metric map), then 24 lockstep frames through
+   `parallel.multistream.BatchedTracker` (graphed, `kf_interval` 5, the
+   first frame a keyframe step), K1 one batched launch per search. It
+   checks each stream's ATE < 0.05 m (rigid alignment) and >= 30 inliers
+   per stream and frame; over the first 8 frames each stream against the
+   same stream alone through the unbatched graphed step: poses within 1e-4
+   on the first frame (one optimization from the same inputs) and within
+   1e-3 over the 8, at S = 16 and at S = 4, inliers within 2, and the
+   vmapped step at S = 1 bit-equal to the unbatched one (the batched
+   kernels sum floats in another order only at S > 1). As the witness of
+   the float32 noise floor it tracks each stream alone again from a first
+   pose moved 1e-6 m and prints that gap beside the batched one, with the
+   frame at which each run's integer scalars first part; 16 identical
+   streams under deterministic algorithms
+   (equal integer scalars, poses within 1e-4); the eager batched step
+   against the graphed one, bit for bit, over the first 7 frames; the
+   batched K1 bit-equal to 16 single launches and to the batched plain
+   version at (16, 1024, 12288) and on the eager step's three real batched
+   calls, each timed against 16 single launches and the batched plain
+   version beside its bound. It prints the lockstep step ms (median, p90)
+   and frames/s per card at S = 1, 4 and 16 (frames 2-11 of each run,
+   after the two captures), peak device memory, captures and replays; then
+   `RoundRobinTracker` at S = 4, B = 6 over the same frames: its frames/s,
+   each stream's ATE and no capture after the first chunk.
 
 Any failed check exits non-zero. The last line is the device JSON; the line
 before it lists the kernels with their launch counts (every phase) and
@@ -183,6 +215,21 @@ DISPATCH_RUNS = (  # label, entry point, graphed, SLAMConfig overrides
     ("async depth 4", "track_monocular", True,
      dict(async_pipeline=True, async_depth=4)))
 GRAPH_T_TOL, GRAPH_INLIERS, GRAPH_MATCHED = 1e-4, 2, 0.99   # item 7's bars
+MAP_IO_FRAMES = 4
+MS_STREAMS, MS_FRAMES, MS_KF_INTERVAL = 16, 24, 5
+MS_TIMED = (2, 12)        # lockstep frames timed in every S run
+MS_SIZES = (1, 4, 16)
+MS_ALONE_FRAMES, MS_EAGER_FRAMES = 8, 7
+MS_ATE = 0.05             # m, tests/test_multistream.py's bar
+# the unbatched step against the batched one: one optimization from the
+# same inputs (frame 1) within 1e-4, the 8 frames within 1e-3, inliers
+# within 2. Readings (H100, call 10): 8-frame gaps of 20 stream runs
+# (S = 16 and 4) 2.5e-5 to 7.3e-4; the unbatched step against itself from
+# a first pose moved MS_MOVED: up to 2.1e-3, the float32 noise floor of 8
+# tracked frames, so the 8-frame bar cannot be tighter than ~1e-3
+MS_T_TOL, MS_T_TOL_SEQ, MS_INLIERS = 1e-4, 1e-3, 2
+MS_MOVED = 1e-6           # m, the witness's move of the first pose
+RR_STREAMS, RR_CHUNK = 4, 6
 
 
 def fail(msg: str):
@@ -1388,6 +1435,474 @@ def check_detect_on_card(frames, idx=DETECT_FRAMES):
               f"{ms:.3f} ms (device time)")
 
 
+def check_map_io(sys_out, frames):
+    """The system phase's map through `save_map` / `load_map` into a fresh
+    System (graphed as the original is), every field bit-equal; then both
+    Systems, from the same tracking state, track the sequence's last
+    MAP_IO_FRAMES frames backwards, poses within GRAPH_T_TOL."""
+    import dataclasses
+    import tempfile
+    from plslam_tpu_torch.models.system import System
+    slam = sys_out["slam"]
+    fresh = System(slam.cfg, device=slam.device,
+                   use_graphs=slam.graphs.enabled)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        path = str(Path(tmp) / "map.npz")
+        slam.save_map(path)
+        size = Path(path).stat().st_size
+        fresh.load_map(path)
+    bad = [f.name for f in dataclasses.fields(slam.ms)
+           if not torch.equal(getattr(slam.ms, f.name),
+                              getattr(fresh.ms, f.name))]
+    if bad:
+        fail(f"map I/O: fields differ after save_map / load_map: {bad}")
+    if fresh.n_kf_host != slam.n_kf_host:
+        fail(f"map I/O: load_map set n_kf_host {fresh.n_kf_host}, the "
+             f"System has {slam.n_kf_host}")
+    for name in ("state", "frame_id", "last_kf_frame", "last_reloc_frame",
+                 "ref_kf_matches"):
+        setattr(fresh, name, getattr(slam, name))
+    fresh.T_last, fresh.velocity = slam.T_last.clone(), slam.velocity.clone()
+    fresh.kf_timestamps = list(slam.kf_timestamps)
+    gap = 0.0
+    for j in range(MAP_IO_FRAMES):
+        img = frames[len(frames) - 1 - j]
+        ts = (len(frames) + j) / 30.0
+        a, b = slam.track_monocular(img, ts), fresh.track_monocular(img, ts)
+        gap = max(gap, float((a - b).abs().max()))
+    print(f"map I/O: {len(bad)} of {len(dataclasses.fields(slam.ms))} "
+          f"fields differ after save_map ({size / 2**20:.1f} MiB npz) and "
+          f"load_map; {MAP_IO_FRAMES} more frames from it within {gap:.2e} "
+          f"of the original System's; states {slam.state} / {fresh.state}")
+    if not gap <= GRAPH_T_TOL or fresh.state != slam.state:
+        fail(f"map I/O: the loaded map's continuation differs (poses "
+             f"{gap}, states {slam.state} / {fresh.state})")
+
+
+def multistream_config():
+    """`SLAMConfig` defaults (TUM fr1: 640x480, 1024 features, 8 levels,
+    48 keyframes x 12288 points, lines on) with the renderer's camera and
+    loop closing off (the trackers run none)."""
+    from plslam_tpu_torch.models.system import SLAMConfig
+    return SLAMConfig(fx=FX, fy=FX, cx=WIDTH / 2, cy=HEIGHT / 2, k1=0, k2=0,
+                      p1=0, p2=0, k3=0, use_loop_closing=False)
+
+
+def _render_stream(args):
+    """One stream's frames (uint8) and frame 0's depth (a worker)."""
+    seed, n_frames, width, height, fx = args
+    from plslam_tpu_torch.datasets import synthetic
+    scene = synthetic.make_scene(seed=seed, width=width, height=height,
+                                 fx=fx, fy=fx)
+    Ts = synthetic.trajectory(N_FRAMES, "orbit")[:n_frames]
+    img0, depth0 = synthetic.render_rgbd(scene, Ts[0])
+    frames = [img0] + [synthetic.render(scene, T) for T in Ts[1:]]
+    return np.stack(frames).astype(np.uint8), depth0.astype(np.float32)
+
+
+def render_streams(n_streams=MS_STREAMS, n_frames=MS_FRAMES + 1):
+    """Stream s: `make_scene(seed=100 + s)` along the slice's orbit (the
+    first `n_frames` of `trajectory(N_FRAMES, "orbit")`), rendered in
+    worker processes: (Ts, frames (S, n_frames, H, W) uint8, depths (S, H,
+    W) of frame 0)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    from plslam_tpu_torch.datasets import synthetic
+    with ProcessPoolExecutor(8, mp_context=multiprocessing.get_context(
+            "spawn")) as pool:
+        out = list(pool.map(_render_stream, [
+            (100 + s, n_frames, WIDTH, HEIGHT, FX) for s in range(n_streams)]))
+    return (synthetic.trajectory(N_FRAMES, "orbit")[:n_frames],
+            np.stack([f for f, _ in out]), np.stack([d for _, d in out]))
+
+
+def stream_maps(cfg, frames, depths):
+    """Each stream's map on the card: a keyframe at the origin and points
+    from frame 0's depth (as `run_slice` bootstraps its map)."""
+    from plslam_tpu_torch.geometry import camera
+    from plslam_tpu_torch.mapstate import state as mstate
+    from plslam_tpu_torch.models import mapping
+    from plslam_tpu_torch.ops import extract, stereo
+    device = torch.device("cuda", 0)
+    ext_cfg = extract.ExtractorConfig(n_features=cfg.n_features,
+                                      n_levels=cfg.n_levels)
+    sf, _ = extract.scale_factors(ext_cfg, device)
+    cam = camera.Camera.create(cfg.fx, cfg.fy, cfg.cx, cfg.cy,
+                               width=cfg.width, height=cfg.height)
+    extractor = extract.PointExtractor(ext_cfg, cfg.height,
+                                       cfg.width).to(device)
+    map_cfg = mstate.MapConfig(max_kf=cfg.max_kf, max_pt=cfg.max_pt,
+                               max_ln=cfg.max_ln, n_kp=cfg.n_features,
+                               n_lf=cfg.n_lf, n_levels=cfg.n_levels)
+    maps = []
+    for s in range(frames.shape[0]):
+        f = extractor(torch.from_numpy(frames[s, 0]).to(device)
+                      .to(torch.float32))
+        f = f._replace(uv_un=camera.undistort_pixels(cam, f.uv))
+        ms = mstate.allocate(map_cfg, device)
+        mapping.insert_keyframe(cam, ms, f, torch.eye(4, device=device),
+                                torch.full((cfg.n_features,), -1,
+                                           dtype=torch.int32, device=device),
+                                0, sf)
+        mapping.create_points_from_depth(
+            cam, ms, ms.n_kf - 1, stereo.depth_at(
+                torch.from_numpy(depths[s]).to(device), f.uv), sf)
+        maps.append(ms)
+    return maps
+
+
+def run_batched(cfg, maps, frames, n_frames, use_graphs=True, record=None):
+    """`BatchedTracker` over the streams of `maps` (S maps, cloned and
+    stacked) and `frames` (S, F, H, W) for `n_frames` lockstep frames
+    (frames 1.., frame 0 made the maps), synchronized after each step;
+    K1's count set to 0 just before and read just after. With `record`
+    (a list), K1's batched calls of the step of frame 1 are appended to it
+    (eager runs). Returns poses (F, S, 4, 4), scalars (F, S, 6), step
+    seconds, launches, peak memory, captures and replays."""
+    from plslam_tpu_torch.mapstate import state as mstate
+    from plslam_tpu_torch.ops import gated_match as gm
+    from plslam_tpu_torch.parallel import multistream
+    device = torch.device("cuda", 0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    bt = multistream.BatchedTracker(cfg, len(maps), kf_interval=MS_KF_INTERVAL,
+                                    device=device, use_graphs=use_graphs)
+    bt.bootstrap(mstate.stack([clone_map(m) for m in maps]))
+    launch = gm._launch
+
+    def recording(args, gated, in_dims=(None,) * 9, S=1):
+        record.append(([t.clone() for t in args], tuple(in_dims), S, gated))
+        return launch(args, gated, in_dims, S)
+    Ts, sc, secs = [], [], []
+    gm.gated_hamming_best2.launches = 0
+    try:
+        for j in range(n_frames):
+            imgs = frames[:, 1 + j]
+            if record is not None and j == 1:
+                gm._launch = recording
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            T, scalars = bt.step(imgs)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            gm._launch = launch
+            Ts.append(T.cpu().numpy())
+            sc.append(scalars.cpu().numpy())
+    finally:
+        gm._launch = launch
+    return dict(poses=np.stack(Ts), scalars=np.stack(sc), secs=secs,
+                launches=gm.gated_hamming_best2.launches,
+                peak=torch.cuda.max_memory_allocated(device),
+                captures=bt.graphs.captures, replays=bt.graphs.replays,
+                capture_s=bt.graphs.capture_s, bt=bt)
+
+
+def run_alone(cfg, maps, frames, n_frames, moved=0.0):
+    """Each stream alone through the unbatched graphed step (the batched
+    tracker's per-stream step, no vmap), the streams one after the other
+    through one bound map: poses (F, S, 4, 4) and scalars (F, S, 6). With
+    `moved`, the first frame starts from the identity moved by that many
+    metres along x."""
+    from functools import partial
+    from plslam_tpu_torch.models import step_graph
+    from plslam_tpu_torch.parallel import multistream
+    device = torch.device("cuda", 0)
+    bt = multistream.BatchedTracker(cfg, 1, kf_interval=MS_KF_INTERVAL,
+                                    device=device)
+    graphs = step_graph.StepGraphs(device)
+    steps = {kf: graphs.step(partial(bt._stream_step, with_kf=kf), bound=0)
+             for kf in (False, True)}
+    ms = clone_map(maps[0])
+    Ts = np.zeros((n_frames, len(maps), 4, 4), np.float32)
+    sc = np.zeros((n_frames, len(maps), 6), np.int32)
+    T0 = torch.eye(4, device=device)
+    T0[0, 3] = moved
+    for s, m in enumerate(maps):
+        multistream.copy_map(ms, m)
+        T, vel = T0, torch.eye(4, device=device)
+        for j in range(n_frames):
+            T, vel, scalars = steps[j % MS_KF_INTERVAL == 0](
+                ms, torch.from_numpy(frames[s, 1 + j]).to(device), T, vel,
+                torch.full((), j, dtype=torch.int32, device=device))
+            Ts[j, s], sc[j, s] = T.cpu().numpy(), scalars.cpu().numpy()
+    return Ts, sc, graphs.captures
+
+
+def check_batched_case(gm, label, args, in_dims, S, gated):
+    """K1's batched launch (`gated_match._launch`) against S single launches
+    and against the batched plain version, exact; then device ms of each
+    beside the bound: S searches' bytes (each input read once, each output
+    written once) over the memory rate, or 2 x 256 operations per passing
+    pair over the int8 peak."""
+    args = [t if d is None else t.movedim(d, 0).contiguous()
+            for t, d in zip(args, in_dims)]
+    dims = tuple(None if d is None else 0 for d in in_dims)
+    # each stream's inputs as one search takes them (fresh, so aligned)
+    per = [[t if d is None else t[s].clone() for t, d in zip(args, dims)]
+           for s in range(S)]
+    full = [t.expand((S,) + t.shape) if d is None else t
+            for t, d in zip(args, dims)]
+    got = gm._launch(args, gated, dims, S)
+    singles = [gm.gated_hamming_best2(*per[s], gated=gated)
+               for s in range(S)]
+    want = gm.gated_hamming_best2_reference(*full, gated=gated)
+    torch.cuda.synchronize()
+    err = 0
+    for k, name in enumerate(("idx", "best", "second")):
+        one = torch.stack([x[k] for x in singles])
+        for other, what in ((one, "single launches"), (want[k], "plain")):
+            e = int((got[k].long() - other.long()).abs().max()) \
+                if got[k].numel() else 0
+            err = max(err, e)
+            if e or got[k].dtype != other.dtype:
+                fail(f"batched K1 {label}: {name} differs from the {what} "
+                     f"(max |diff| {e})")
+    n, p = args[0].shape[-2], args[4].shape[-2]
+    n_pass = int(gm.gate_mask(*full[1:4], *full[5:], gated=gated).sum())
+    n_bytes = sum(t.numel() * t.element_size() for t in args) \
+        + sum(t.numel() * t.element_size() for t in got)
+    bytes_ms = 1e3 * n_bytes / H100_BYTES
+    ops_ms = 1e3 * 2 * 256 * n_pass / H100_INT8_OPS
+    out = dict(err=err, ms=cuda_ms(lambda: gm._launch(args, gated, dims,
+                                                       S)),
+        single_ms=cuda_ms(lambda: [gm.gated_hamming_best2(
+            *per[s], gated=gated) for s in range(S)], runs=10, batch=2),
+        plain_ms=cuda_ms(lambda: gm.gated_hamming_best2_reference(
+            *full, gated=gated), runs=10, batch=2),
+        bound_ms=max(bytes_ms, ops_ms),
+        bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+    print(f"batched K1 {label}: S={S} N={n} P={p} gated={gated}, "
+          f"inputs batched {[d is not None for d in dims]}: bit-equal to "
+          f"{S} single launches and to the batched plain version; "
+          f"{n_pass} pairs pass; ms: one batched launch {out['ms']:.4f}, "
+          f"{S} single launches {out['single_ms']:.4f}, batched plain "
+          f"{out['plain_ms']:.4f}; bound {out['bound_ms']:.5f} ms by "
+          f"{out['bound_by']} (bytes {n_bytes} / 3.35 TB/s = "
+          f"{bytes_ms:.5f} ms, 2 x 256 x {n_pass} / 1979 TOP/s = "
+          f"{ops_ms:.5f} ms), batched launch at "
+          f"{100 * out['bound_ms'] / out['ms']:.1f}% of the bound")
+    return out
+
+
+def _pose_gaps(a, b):
+    """Per stream, the largest pose-entry gap over the frames."""
+    return np.abs(a - b).reshape(a.shape[0], a.shape[1], -1).max((0, 2))
+
+
+def _timed_rate(label, secs, S):
+    """Lockstep step ms (median, p90) and frames/s per card over the frames
+    MS_TIMED of a run."""
+    x = np.array(secs[MS_TIMED[0]:MS_TIMED[1]])
+    r = dict(median_ms=1e3 * float(np.median(x)),
+             p90_ms=1e3 * float(np.percentile(x, 90)),
+             fps=S * len(x) / float(x.sum()))
+    print(f"multistream: {label}: lockstep step ms median "
+          f"{r['median_ms']:.2f} p90 {r['p90_ms']:.2f} over frames "
+          f"{MS_TIMED[0]}-{MS_TIMED[1] - 1}; {r['fps']:.1f} frames/s per "
+          f"card ({S} streams)")
+    return r
+
+
+def run_multistream_phase(gm, launches):
+    """The multistream phase (item 11 of the module docstring)."""
+    from plslam_tpu_torch.datasets import synthetic
+    t_phase = time.perf_counter()
+    cfg = multistream_config()
+    t0 = time.perf_counter()
+    Ts, frames, depths = render_streams()
+    print(f"multistream: rendered {frames.shape[0]} streams x "
+          f"{frames.shape[1]} frames in {time.perf_counter() - t0:.1f} s")
+    maps = stream_maps(cfg, frames, depths)
+    S = len(maps)
+
+    # the main path: 16 streams, graphed, K1 counted from 0
+    main = run_batched(cfg, maps, frames, MS_FRAMES)
+    launches["multistream"] = main["launches"]
+    inl = main["scalars"][..., 0]
+    ates = [synthetic.ate_rmse(main["poses"][:, s], Ts[1:MS_FRAMES + 1],
+                               align_scale=False) for s in range(S)]
+    bt = main["bt"]
+    print(f"multistream: {S} streams x {MS_FRAMES} lockstep frames: "
+          f"ATE per stream (m) {' '.join(f'{a:.4f}' for a in ates)}; "
+          f"inliers per stream and frame min {inl.min()} median "
+          f"{int(np.median(inl))}; keyframes per stream "
+          f"{bt.ms.n_kf.tolist()}, points {bt.ms.n_pt.tolist()}, lines "
+          f"{bt.ms.n_ln.tolist()}; K1 launches {main['launches']}; peak "
+          f"device memory {main['peak'] / 2**20:.1f} MiB; graphs: "
+          f"{main['captures']} captures ({main['capture_s']:.1f} s with "
+          f"their eager warm-ups), {main['replays']} replays")
+    rates = {S: _timed_rate(f"S={S}", main["secs"], S)}
+    bad = []
+    if main["launches"] != 3 * MS_FRAMES:
+        bad.append(f"K1 launched {main['launches']} times, expected "
+                   f"{3 * MS_FRAMES} (3 batched searches per step)")
+    if max(ates) >= MS_ATE:
+        bad.append(f"stream ATE {max(ates):.4f} m (>= {MS_ATE})")
+    if inl.min() < MIN_INLIERS:
+        bad.append(f"{inl.min()} inliers on a stream and frame "
+                   f"(< {MIN_INLIERS})")
+
+    # each stream alone through the unbatched graphed step; and, as the
+    # witness of how far float32 noise carries, each stream alone again
+    # from a first pose moved by MS_MOVED
+    F = MS_ALONE_FRAMES
+    T1, s1, caps = run_alone(cfg, maps, frames, F)
+    T1m, s1m, _ = run_alone(cfg, maps, frames, F, moved=MS_MOVED)
+    batched = main["poses"][:F]
+    per_frame = np.abs(batched - T1).reshape(F, -1).max(1)
+    per_stream = _pose_gaps(batched, T1)
+    moved_stream = _pose_gaps(T1m, T1)
+    d_inl = np.abs(main["scalars"][:F, :, 0].astype(int)
+                   - s1[..., 0]).max(0)
+
+    def first_flip(a, b):
+        """Per stream, the first frame whose integer scalars differ (-1:
+        none)."""
+        d = (a != b).any(-1)
+        return [int(np.argmax(d[:, k])) if d[:, k].any() else -1
+                for k in range(d.shape[1])]
+    print(f"multistream: each stream alone through the unbatched graphed "
+          f"step over {F} frames ({caps} captures): pose gap over the "
+          f"streams per frame {' '.join(f'{g:.2e}' for g in per_frame)}; "
+          f"per stream {' '.join(f'{g:.2e}' for g in per_stream)}; first "
+          f"frame with an integer scalar differing per stream "
+          f"{first_flip(main['scalars'][:F], s1)}; inlier gap max "
+          f"{d_inl.max()}")
+    print(f"multistream: witness, each stream alone from a first pose moved "
+          f"{MS_MOVED:g} m against alone: pose gap per stream "
+          f"{' '.join(f'{g:.2e}' for g in moved_stream)} (max "
+          f"{moved_stream.max():.2e}, batched against alone max "
+          f"{per_stream.max():.2e}); first frame with an integer scalar "
+          f"differing per stream {first_flip(s1m, s1)}")
+    if (per_frame[0] > MS_T_TOL or per_frame.max() > MS_T_TOL_SEQ
+            or d_inl.max() > MS_INLIERS):
+        bad.append(f"streams alone differ: poses {per_frame.tolist()}, "
+                   f"inliers {d_inl.max()}")
+
+    # 16 identical streams under deterministic algorithms
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        same = run_batched(cfg, [maps[0]] * S,
+                           np.broadcast_to(frames[:1], frames.shape),
+                           MS_ALONE_FRAMES)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    sc_eq = bool((same["scalars"] == same["scalars"][:, :1]).all())
+    same_gap = _pose_gaps(same["poses"],
+                          np.broadcast_to(same["poses"][:, :1],
+                                          same["poses"].shape)).max()
+    print(f"multistream: {S} identical streams, deterministic algorithms, "
+          f"{MS_ALONE_FRAMES} frames: integer scalars equal {sc_eq}, poses "
+          f"within {same_gap:.2e}")
+    if not sc_eq or same_gap > MS_T_TOL:
+        bad.append(f"identical streams differ: scalars equal {sc_eq}, poses "
+                   f"{same_gap}")
+
+    # the eager batched step against the graphed one, and K1's real calls
+    calls = []
+    eager = run_batched(cfg, maps, frames, MS_EAGER_FRAMES,
+                        use_graphs=False, record=calls)
+    eq = bool(np.array_equal(eager["poses"],
+                             main["poses"][:MS_EAGER_FRAMES])
+              and np.array_equal(eager["scalars"],
+                                 main["scalars"][:MS_EAGER_FRAMES]))
+    print(f"multistream: eager batched step against the graphed one over "
+          f"{MS_EAGER_FRAMES} frames (a keyframe step replayed): "
+          f"bit-equal {eq}; eager step ms median "
+          f"{1e3 * float(np.median(eager['secs'][1:])):.1f}")
+    if not eq:
+        bad.append("the graphed batched step differs from the eager one")
+    if len(calls) != len(TRACKING_SEARCHES):
+        bad.append(f"recorded {len(calls)} batched K1 calls in a step, "
+                   f"expected {len(TRACKING_SEARCHES)}")
+    k1 = {}
+    for (args, in_dims, n_s, gated), label in zip(calls, TRACKING_SEARCHES):
+        k1[label] = check_batched_case(gm, f"real call, {label}", args,
+                                       in_dims, n_s, gated)
+    rng = np.random.default_rng(16)
+    one = [random_search_inputs(rng, 1024, 12288) for _ in range(S)]
+    stacked = [torch.from_numpy(np.stack([o[k] for o in one])).cuda()
+               for k in one[0]]
+    k1["random"] = check_batched_case(gm, "random inputs", stacked,
+                                      (0,) * 9, S, True)
+
+    # frames/s per card at S = 1 and 4 (the first streams); their first
+    # frames against the 16-stream run and the unbatched step alone
+    for n_s in MS_SIZES:
+        if n_s == S:
+            continue
+        r = run_batched(cfg, maps[:n_s], frames[:n_s], MS_TIMED[1])
+        rates[n_s] = _timed_rate(f"S={n_s}", r["secs"], n_s)
+        vs_main, vs_alone = (
+            " ".join(f"{g:.2e}" for g in _pose_gaps(r["poses"][:F],
+                                                    ref[:, :n_s]))
+            for ref in (batched, T1))
+        print(f"multistream: S={n_s}: peak device memory "
+              f"{r['peak'] / 2**20:.1f} MiB, {r['captures']} captures "
+              f"({r['capture_s']:.1f} s), K1 launches {r['launches']}; "
+              f"over {F} frames, pose gap per stream against S={S} "
+              f"{vs_main}, against alone {vs_alone}")
+        gap = _pose_gaps(r["poses"][:F], T1[:, :n_s]).max()
+        same = np.array_equal(r["scalars"][:F], s1[:, :n_s])
+        if n_s == 1 and (gap > 0 or not same):
+            bad.append(f"S=1: the vmapped step differs from the unbatched "
+                       f"one: poses {gap}, integer scalars equal {same}")
+        if gap > MS_T_TOL_SEQ:
+            bad.append(f"S={n_s}: streams alone differ: poses {gap}")
+    check_round_robin(cfg, maps, frames, Ts, launches, bad)
+    print(f"multistream: frames/s per card " + ", ".join(
+        f"S={k} {rates[k]['fps']:.1f}" for k in sorted(rates))
+        + f"; phase {time.perf_counter() - t_phase:.1f} s")
+    if bad:
+        fail("multistream: " + "; ".join(bad))
+    return rates, k1
+
+
+def check_round_robin(cfg, maps, frames, Ts, launches, bad):
+    """`RoundRobinTracker` at RR_STREAMS streams, chunks of RR_CHUNK, over
+    the batched phase's frames: frames/s after the first chunk (which
+    captures), each stream's ATE, no capture after the first chunk."""
+    from plslam_tpu_torch.datasets import synthetic
+    from plslam_tpu_torch.ops import gated_match as gm
+    from plslam_tpu_torch.parallel import multistream
+    device = torch.device("cuda", 0)
+    rr = multistream.RoundRobinTracker(cfg, RR_STREAMS, device=device)
+    rr.bootstrap(maps[:RR_STREAMS])
+    n_chunks = MS_FRAMES // RR_CHUNK
+    poses, secs, caps = [[] for _ in range(RR_STREAMS)], [], []
+    gm.gated_hamming_best2.launches = 0
+    for c in range(n_chunks):
+        chunk = [frames[s, 1 + c * RR_CHUNK:1 + (c + 1) * RR_CHUNK]
+                 for s in range(RR_STREAMS)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = rr.step_chunks(chunk)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        caps.append(rr.slam.graphs.captures)
+        for s, T in enumerate(out):
+            poses[s].append(T.cpu().numpy())
+    launches["round robin"] = gm.gated_hamming_best2.launches
+    ates = [synthetic.ate_rmse(np.concatenate(p), Ts[1:n_chunks * RR_CHUNK
+                                                     + 1], align_scale=False)
+            for p in poses]
+    fps = RR_STREAMS * RR_CHUNK * (n_chunks - 1) / sum(secs[1:])
+    print(f"round robin: {RR_STREAMS} streams x {n_chunks} chunks of "
+          f"{RR_CHUNK}: {fps:.1f} frames/s per card after the first chunk; "
+          f"ATE per stream (m) {' '.join(f'{a:.4f}' for a in ates)}; "
+          f"captures after each chunk {caps}; K1 launches "
+          f"{launches['round robin']}")
+    if max(ates) >= MS_ATE:
+        bad.append(f"round robin: stream ATE {max(ates):.4f} m")
+    if len(set(caps)) != 1:
+        bad.append(f"round robin: captures after the first chunk {caps}")
+    if launches["round robin"] != 3 * RR_STREAMS * n_chunks * RR_CHUNK:
+        bad.append(f"round robin: K1 launched {launches['round robin']} "
+                   f"times, expected "
+                   f"{3 * RR_STREAMS * n_chunks * RR_CHUNK}")
+    return fps
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1428,7 +1943,9 @@ def main() -> int:
 
     launches = {}
     launches["slice"] = check_slice()
-    launches["system"] = check_system_phase(gm, Ts_sys, frames_sys, timing)
+    sys_out = check_system_phase(gm, Ts_sys, frames_sys, timing)
+    launches["system"] = sys_out["launches"]
+    check_map_io(sys_out, frames_sys)
     t0 = time.perf_counter()
     for label, r in run_dispatch(gm, Ts_sys, frames_sys, timing).items():
         launches[f"dispatch, {label}"] = r["out"]["launches"]
@@ -1444,6 +1961,7 @@ def main() -> int:
           f"{c['captures']} captures; phase "
           f"{time.perf_counter() - t0:.1f} s")
     check_later_phases(gm, device, timing, launches)
+    run_multistream_phase(gm, launches)
     print(f"K1 launches: " + ", ".join(f"{k} {v}" for k, v in
                                        launches.items()))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
@@ -1503,15 +2021,15 @@ def check_slice() -> int:
     return out["launches"]
 
 
-def check_system_phase(gm, Ts_sys, frames_sys, timing) -> int:
+def check_system_phase(gm, Ts_sys, frames_sys, timing) -> dict:
     """The system phase, eager (it records K1's real calls), and K1 on
-    those calls; returns K1's launches."""
+    those calls; returns the run (`run_system`)."""
     t0 = time.perf_counter()
     sys_out = run_system(frames_sys)
     print(f"system: {SYSTEM_FRAMES} frames in {time.perf_counter() - t0:.1f} s")
     check_system(Ts_sys, sys_out)
     check_real_calls(gm, sys_out, timing)
-    return sys_out["launches"]
+    return sys_out
 
 
 def check_real_calls(gm, out, timing, phase=None):

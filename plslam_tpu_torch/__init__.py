@@ -4,8 +4,9 @@ The package mirrors the subpackage layout of `plslam_tpu` and keeps its
 module and function names. It imports torch and numpy only; the JAX package
 stays the reference that every ported function is tested against.
 
-The port currently covers the per-frame monocular tracking step (point
-extraction -> undistortion -> local-map tracking) plus the depth bootstrap
-that gives it a map. The projection-gated Hamming top-2 search runs as a
-hand-written CUDA kernel on CUDA tensors (`ops/gated_match.py`).
+The port covers the point-and-line `models/system.System` for the three
+sensors with its dispatch paths, the multi-stream trackers
+(`parallel/multistream.py`) and map I/O. The projection-gated Hamming top-2
+search runs as a hand-written CUDA kernel on CUDA tensors
+(`ops/gated_match.py`), batched over streams under `torch.func.vmap`.
 """

@@ -51,6 +51,16 @@
 //   through shared memory, and the cluster's blocks push their keys into the
 //   owner block's shared memory (distributed shared memory) before one
 //   cluster barrier. Only (idx int64, best, second) reach device memory.
+// - A batch of S searches (the stream axis that `jax.vmap` gives the TPU
+//   kernel) is one launch too: grid z is the stream, and each z-slice is
+//   one stream's search as above, with its own visibility pre-pass, its
+//   own cluster along P and its own results. An input holds either one
+//   tensor for every stream or S of them back to back (its rows per
+//   stream: 0, or N / P, or for a map-side gate field P rounded up so
+//   that each stream starts 16-byte aligned). Each map-side tensor map
+//   has the stream as its outer dimension, so a tile's copies start at
+//   its stream's row and read zeros past P, as a single search's do; no
+//   stream reads another's points.
 
 #include <cooperative_groups.h>
 #include <cuda.h>
@@ -98,6 +108,18 @@ struct Stage {
 // The tensor maps of the map points' inputs, read one tile at a time.
 struct Maps {
     CUtensorMap desc, uv, radius, level, visible;
+};
+
+// Rows per stream of each input (0: one tensor shared by every stream).
+struct Streams {
+    int q_bits, q_uv, q_oct, q_valid, d_bits, d_uv, d_radius, d_level,
+        d_visible;
+};
+
+// This stream's coordinate along the stream dimension of each map-side
+// tensor map (0 for a tensor shared by every stream).
+struct MapRows {
+    int desc, uv, radius, level, visible;
 };
 
 struct Smem {
@@ -197,13 +219,15 @@ __device__ __forceinline__ void merge(unsigned& b, unsigned& s, unsigned b2,
     b = min(b, b2);
 }
 
-// A 1-D tensor copy of one box at element x, completing on `bar`.
-__device__ __forceinline__ void tensor_copy_1d(void* dst,
+// A 2-D tensor copy of one box at element x of row y, completing on
+// `bar`.
+__device__ __forceinline__ void tensor_copy_2d(void* dst,
                                                const CUtensorMap* map, int x,
-                                               uint64_t* bar) {
-    asm volatile("cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::"
-                 "complete_tx::bytes [%0], [%1, {%2}], [%3];\n"
-                 :: "r"(smem_addr(dst)), "l"(map), "r"(x), "r"(smem_addr(bar))
+                                               int y, uint64_t* bar) {
+    asm volatile("cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::"
+                 "complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n"
+                 :: "r"(smem_addr(dst)), "l"(map), "r"(x), "r"(y),
+                    "r"(smem_addr(bar))
                  : "memory");
 }
 
@@ -211,7 +235,8 @@ __device__ __forceinline__ void tensor_copy_1d(void* dst,
 // `full` by their byte count; rows past P are zero, so invisible.
 template <bool kGated>
 __device__ __forceinline__ void stage_tile(Stage& st, uint64_t* full,
-                                           const Maps& maps, int tile) {
+                                           const Maps& maps,
+                                           const MapRows& rows, int tile) {
     constexpr int kBytes = kTile * (kDescBytes + 1)
                          + (kGated ? kTile * (8 + 4 + 4) : 0);
     const int t0 = tile * kTile;
@@ -222,25 +247,26 @@ __device__ __forceinline__ void stage_tile(Stage& st, uint64_t* full,
     #pragma unroll
     for (int h = 0; h < 2; ++h)
         asm volatile(
-            "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::"
-            "complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n"
+            "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::"
+            "complete_tx::bytes [%0], [%1, {%2, %3, %4}], [%5];\n"
             :: "r"(smem_addr(st.desc[h])), "l"(&maps.desc), "r"(128 * h),
-               "r"(t0), "r"(smem_addr(full))
+               "r"(t0), "r"(rows.desc), "r"(smem_addr(full))
             : "memory");
-    tensor_copy_1d(st.vis, &maps.visible, t0, full);
+    tensor_copy_2d(st.vis, &maps.visible, t0, rows.visible, full);
     if (kGated) {
-        tensor_copy_1d(st.uv, &maps.uv, 2 * t0, full);
-        tensor_copy_1d(st.radius, &maps.radius, t0, full);
-        tensor_copy_1d(st.level, &maps.level, t0, full);
+        tensor_copy_2d(st.uv, &maps.uv, 2 * t0, rows.uv, full);
+        tensor_copy_2d(st.radius, &maps.radius, t0, rows.radius, full);
+        tensor_copy_2d(st.level, &maps.level, t0, rows.level, full);
     }
 }
 
-// Folds tile `st` (first point t0) into this thread's running top-2 keys:
-// acc[4 i + 2 h + e] is the product of point 16 w + g + 8 h (w: the warp in
-// its warpgroup) and query 8 i + 2 t + e, as (2q - 1).b.
+// Folds tile `st` (first point t0 of the stream's P) into this thread's
+// running top-2 keys: acc[4 i + 2 h + e] is the product of point
+// 16 w + g + 8 h (w: the warp in its warpgroup) and query 8 i + 2 t + e,
+// as (2q - 1).b.
 template <bool kGated>
 __device__ __forceinline__ void fold_tile(
-    const Stage& st, const int4* qrec, int t0, int w, int g, int t,
+    const Stage& st, const int4* qrec, int t0, int p, int w, int g, int t,
     const int (&acc)[kAccs], unsigned (&best)[kAccs / 2],
     unsigned (&second)[kAccs / 2])
 {
@@ -252,7 +278,7 @@ __device__ __forceinline__ void fold_tile(
     #pragma unroll
     for (int h = 0; h < 2; ++h) {
         const int j = 16 * w + g + 8 * h;
-        vis[h] = st.vis[j] != 0;
+        vis[h] = st.vis[j] != 0 && t0 + j < p;
         if (kGated) {
             uv[h] = st.uv[j];
             rad[h] = st.radius[j];
@@ -305,10 +331,10 @@ gated_best2(const __grid_constant__ Maps maps,   // the P map points
             const int32_t* __restrict__ q_oct,     // (N,)
             const uint8_t* __restrict__ q_valid,   // (N,)
             const uint8_t* __restrict__ d_visible, // (P,)
-            int n, int p,
-            int32_t* __restrict__ best_out,        // (N,)
-            int32_t* __restrict__ second_out,      // (N,)
-            int64_t* __restrict__ idx_out)         // (N,)
+            int n, int p, Streams per,             // per stream, see above
+            int32_t* __restrict__ best_out,        // (S, N)
+            int32_t* __restrict__ second_out,      // (S, N)
+            int64_t* __restrict__ idx_out)         // (S, N)
 {
     extern __shared__ unsigned char smem_raw[];
     Smem& sm = *reinterpret_cast<Smem*>(
@@ -319,6 +345,20 @@ gated_best2(const __grid_constant__ Maps maps,   // the P map points
     const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
     const bool producer = warp == kConsumers;
     const int q_block = blockIdx.y * kQueries;
+    // this block's stream: its inputs' rows and its outputs
+    const int z = blockIdx.z;
+    q_bits += static_cast<size_t>(z) * per.q_bits * kDescBytes;
+    q_uv += static_cast<size_t>(z) * per.q_uv;
+    q_oct += static_cast<size_t>(z) * per.q_oct;
+    q_valid += static_cast<size_t>(z) * per.q_valid;
+    const size_t vis0 = static_cast<size_t>(z) * per.d_visible;
+    d_visible += vis0;
+    best_out += static_cast<size_t>(z) * n;
+    second_out += static_cast<size_t>(z) * n;
+    idx_out += static_cast<size_t>(z) * n;
+    const MapRows map_rows = {per.d_bits ? z : 0, per.d_uv ? z : 0,
+                              per.d_radius ? z : 0, per.d_level ? z : 0,
+                              per.d_visible ? z : 0};
 
     // This rank's tiles are rank, rank + n_ranks, ...; the producer warp
     // keeps those with a visible point, in ascending order, and queues the
@@ -340,7 +380,7 @@ gated_best2(const __grid_constant__ Maps maps,   // the P map points
             bool live = false;
             if (k < my_tiles) {
                 const int t0 = (rank + k * n_ranks) * kTile;
-                if (t0 + kTile <= p) {
+                if (t0 + kTile <= p && vis0 % 16 == 0) {
                     const uint4* f =
                         reinterpret_cast<const uint4*>(d_visible + t0);
                     uint4 x = make_uint4(0, 0, 0, 0);
@@ -363,7 +403,7 @@ gated_best2(const __grid_constant__ Maps maps,   // the P map points
         if (lane == 0) {
             sm.n_live = n_live;
             for (int k = 0; k < min(n_live, kStages); ++k)
-                stage_tile<kGated>(sm.stage[k], &sm.full[k], maps,
+                stage_tile<kGated>(sm.stage[k], &sm.full[k], maps, map_rows,
                                    rank + sm.live[k] * n_ranks);
         }
     } else {
@@ -430,7 +470,7 @@ gated_best2(const __grid_constant__ Maps maps,   // the P map points
             const int s = k % kStages;
             mbar_wait(&sm.empty[s], (k / kStages - 1) & 1);
             if (lane == 0)
-                stage_tile<kGated>(sm.stage[s], &sm.full[s], maps,
+                stage_tile<kGated>(sm.stage[s], &sm.full[s], maps, map_rows,
                                    rank + sm.live[k] * n_ranks);
         }
     } else {
@@ -451,8 +491,8 @@ gated_best2(const __grid_constant__ Maps maps,   // the P map points
             asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
             pin(acc);
             fold_tile<kGated>(sm.stage[s], sm.qrec,
-                              (rank + sm.live[k] * n_ranks) * kTile, w, g, t,
-                              acc, best, second);
+                              (rank + sm.live[k] * n_ranks) * kTile, p, w, g,
+                              t, acc, best, second);
             __syncwarp();
             if (lane == 0) mbar_arrive(&sm.empty[s]);
         }
@@ -508,12 +548,13 @@ gated_best2(const __grid_constant__ Maps maps,   // the P map points
 }
 
 // A tensor map over `rank` dimensions of `dims` elements (the first
-// contiguous, `row_bytes` apart in the second), read in boxes of `box`;
+// contiguous, dimension i + 1 `strides[i]` bytes apart), read in boxes of
+// `box`; in each dimension,
 // reads past the end give zeros. The encoder is the driver's, reached
 // through the runtime.
 cudaError_t encode_map(CUtensorMap* map, const void* ptr,
                        CUtensorMapDataType type, int rank,
-                       const cuuint64_t* dims, cuuint64_t row_bytes,
+                       const cuuint64_t* dims, const cuuint64_t* strides,
                        const cuuint32_t* box, CUtensorMapSwizzle swizzle)
 {
     using Encode = CUresult (*)(
@@ -532,55 +573,76 @@ cudaError_t encode_map(CUtensorMap* map, const void* ptr,
             return cudaErrorSymbolNotFound;
         encode = reinterpret_cast<Encode>(fn);
     }
-    const cuuint32_t steps[2] = {1, 1};
+    const cuuint32_t steps[3] = {1, 1, 1};
     const CUresult r = encode(
-        map, type, rank, const_cast<void*>(ptr), dims, &row_bytes, box,
+        map, type, rank, const_cast<void*>(ptr), dims, strides, box,
         steps, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
     return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// The maps of one search: the (P, 256) descriptors in boxes of 64 rows x
-// 128 bytes with the 128-byte swizzle, and the gate fields in boxes of one
-// tile.
+// The map of a gate field: (S or 1) rows of P points of `point_bytes`,
+// `per_stream` points apart (0: one row shared by every stream; else a
+// multiple of 16 bytes), in boxes of one tile of one row.
+cudaError_t encode_rows(CUtensorMap* map, const void* ptr,
+                        CUtensorMapDataType type, int elems_per_point,
+                        int point_bytes, int p, int s, int per_stream)
+{
+    const cuuint64_t row_bytes = static_cast<cuuint64_t>(p) * point_bytes;
+    const cuuint64_t dims[2] = {static_cast<cuuint64_t>(p) * elems_per_point,
+                                static_cast<cuuint64_t>(per_stream ? s : 1)};
+    const cuuint64_t strides[1] = {
+        per_stream ? static_cast<cuuint64_t>(per_stream) * point_bytes
+                   : (row_bytes + 15) / 16 * 16};
+    const cuuint32_t box[2] = {static_cast<cuuint32_t>(kTile
+                                                       * elems_per_point), 1};
+    return encode_map(map, ptr, type, 2, dims, strides, box,
+                      CU_TENSOR_MAP_SWIZZLE_NONE);
+}
+
+// The maps of one batch of searches: the (S or 1) x P x 256 descriptors in
+// boxes of 64 rows x 128 bytes of one stream with the 128-byte swizzle, and
+// the gate fields in boxes of one tile of one stream.
 cudaError_t encode_maps(Maps* maps, const void* d_bits, const void* d_uv,
                         const void* d_radius, const void* d_level,
-                        const void* d_visible, int p, bool gated)
+                        const void* d_visible, int p, int s,
+                        const Streams& per, bool gated)
 {
-    const cuuint64_t points = static_cast<cuuint64_t>(p);
-    const cuuint64_t desc_dims[2] = {kDescBytes, points};
-    const cuuint32_t desc_box[2] = {128, kTile};
-    const cuuint64_t uv_dims[1] = {2 * points};
-    const cuuint64_t dims[1] = {points};
-    const cuuint32_t uv_box[1] = {2 * kTile};
-    const cuuint32_t box[1] = {kTile};
+    const cuuint64_t desc_dims[3] = {
+        kDescBytes, static_cast<cuuint64_t>(p),
+        static_cast<cuuint64_t>(per.d_bits ? s : 1)};
+    const cuuint64_t desc_strides[2] = {
+        kDescBytes,
+        static_cast<cuuint64_t>(per.d_bits ? per.d_bits : p) * kDescBytes};
+    const cuuint32_t desc_box[3] = {128, kTile, 1};
     cudaError_t err = encode_map(&maps->desc, d_bits,
-                                 CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, desc_dims,
-                                 kDescBytes, desc_box,
+                                 CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, desc_dims,
+                                 desc_strides, desc_box,
                                  CU_TENSOR_MAP_SWIZZLE_128B);
     if (err == cudaSuccess)
-        err = encode_map(&maps->visible, d_visible,
-                         CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, dims, 0, box,
-                         CU_TENSOR_MAP_SWIZZLE_NONE);
+        err = encode_rows(&maps->visible, d_visible,
+                          CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, 1, p, s,
+                          per.d_visible);
     if (err == cudaSuccess && gated)
-        err = encode_map(&maps->uv, d_uv, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1,
-                         uv_dims, 0, uv_box, CU_TENSOR_MAP_SWIZZLE_NONE);
+        err = encode_rows(&maps->uv, d_uv, CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                          2, 8, p, s, per.d_uv);
     if (err == cudaSuccess && gated)
-        err = encode_map(&maps->radius, d_radius,
-                         CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1, dims, 0, box,
-                         CU_TENSOR_MAP_SWIZZLE_NONE);
+        err = encode_rows(&maps->radius, d_radius,
+                          CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1, 4, p, s,
+                          per.d_radius);
     if (err == cudaSuccess && gated)
-        err = encode_map(&maps->level, d_level, CU_TENSOR_MAP_DATA_TYPE_INT32,
-                         1, dims, 0, box, CU_TENSOR_MAP_SWIZZLE_NONE);
+        err = encode_rows(&maps->level, d_level,
+                          CU_TENSOR_MAP_DATA_TYPE_INT32, 1, 4, p, s,
+                          per.d_level);
     return err;
 }
 
 template <bool kGated>
-cudaError_t launch(cudaStream_t s, const void* q_bits, const void* q_uv,
+cudaError_t launch(cudaStream_t stream, const void* q_bits, const void* q_uv,
                    const void* q_oct, const void* q_valid, const void* d_bits,
                    const void* d_uv, const void* d_radius, const void* d_level,
-                   const void* d_visible, int n, int p, void* best,
-                   void* second, void* idx)
+                   const void* d_visible, int n, int p, int s,
+                   const Streams& rows, void* best, void* second, void* idx)
 {
     cudaError_t err = cudaFuncSetAttribute(
         gated_best2<kGated>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -595,14 +657,14 @@ cudaError_t launch(cudaStream_t s, const void* q_bits, const void* q_uv,
     Maps maps = {};   // unused when P = 0: no tile is live
     if (p > 0) {
         err = encode_maps(&maps, d_bits, d_uv, d_radius, d_level, d_visible,
-                          p, kGated);
+                          p, s, rows, kGated);
         if (err != cudaSuccess) return err;
     }
     cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(cluster, (n + kQueries - 1) / kQueries, 1);
+    cfg.gridDim = dim3(cluster, (n + kQueries - 1) / kQueries, s);
     cfg.blockDim = dim3(kThreads, 1, 1);
     cfg.dynamicSmemBytes = kSmemBytes;
-    cfg.stream = s;
+    cfg.stream = stream;
     cudaLaunchAttribute attr[1];
     attr[0].id = cudaLaunchAttributeClusterDimension;
     attr[0].val.clusterDim.x = cluster;
@@ -614,37 +676,60 @@ cudaError_t launch(cudaStream_t s, const void* q_bits, const void* q_uv,
         &cfg, gated_best2<kGated>, maps, static_cast<const uint8_t*>(q_bits),
         static_cast<const float2*>(q_uv), static_cast<const int32_t*>(q_oct),
         static_cast<const uint8_t*>(q_valid),
-        static_cast<const uint8_t*>(d_visible), n, p,
+        static_cast<const uint8_t*>(d_visible), n, p, rows,
         static_cast<int32_t*>(best), static_cast<int32_t*>(second),
         static_cast<int64_t*>(idx));
     if (err != cudaSuccess) return err;
     return cudaGetLastError();
 }
 
+int run(int device, void* stream, const void* q_bits, const void* q_uv,
+        const void* q_oct, const void* q_valid, const void* d_bits,
+        const void* d_uv, const void* d_radius, const void* d_level,
+        const void* d_visible, int n, int p, int s, const Streams& rows,
+        int gated, void* best, void* second, void* idx)
+{
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (n <= 0 || s <= 0) return 0;
+    if (p < 0 || p >= (1 << 21) || s > 65535
+        || static_cast<long long>(s) * p >= (1ll << 31))
+        return static_cast<int>(cudaErrorInvalidValue);
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    err = gated
+        ? launch<true>(st, q_bits, q_uv, q_oct, q_valid, d_bits, d_uv,
+                       d_radius, d_level, d_visible, n, p, s, rows, best,
+                       second, idx)
+        : launch<false>(st, q_bits, q_uv, q_oct, q_valid, d_bits, d_uv,
+                        d_radius, d_level, d_visible, n, p, s, rows, best,
+                        second, idx);
+    return static_cast<int>(err);
+}
+
 }  // namespace
 
-// Launches the search on `stream` of `device`: one kernel, grid (cluster,
-// ceil(N / 80)) in clusters along P. Pointers are device pointers to the
-// (N, 256) and (P, 256) u8 rows (16-byte aligned), uv float2, int32 octave /
-// level, float radius and bool flags (d_visible 4-byte aligned); outputs are
-// (N,) int32 best and second and (N,) int64 index. P must be below 2^21.
-// Returns the cudaError_t of the launch.
+// Launches S searches (S = 1: one) on `stream` of `device` as one kernel,
+// grid (cluster, ceil(N / 80), S) in clusters along P. Pointers are device
+// pointers to the (N, 256) and (P, 256) u8 rows, uv float2, int32 octave /
+// level, float radius and bool flags; `rows` holds the rows per stream of
+// the nine inputs in argument order (0: one tensor for all streams; else
+// the streams back to back, N apart for the queries, P for the
+// descriptors, and for the map-side gate fields and flags a count >= P
+// that starts every stream 16-byte aligned). The map-side inputs are
+// 16-byte aligned at their first row (d_visible too), P is below 2^21 and
+// S x P below 2^31. Outputs are (S, N) int32 best and second and int64
+// index. Returns the cudaError_t of the launch.
 extern "C" int plslam_gated_hamming_best2(
     int device, void* stream,
     const void* q_bits, const void* q_uv, const void* q_oct,
     const void* q_valid, const void* d_bits, const void* d_uv,
     const void* d_radius, const void* d_level, const void* d_visible,
-    int n, int p, int gated, void* best, void* second, void* idx)
+    int n, int p, int s, const int* rows, int gated, void* best,
+    void* second, void* idx)
 {
-    cudaError_t err = cudaSetDevice(device);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (n <= 0) return 0;
-    if (p < 0 || p >= (1 << 21)) return static_cast<int>(cudaErrorInvalidValue);
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    err = gated
-        ? launch<true>(s, q_bits, q_uv, q_oct, q_valid, d_bits, d_uv,
-                       d_radius, d_level, d_visible, n, p, best, second, idx)
-        : launch<false>(s, q_bits, q_uv, q_oct, q_valid, d_bits, d_uv,
-                        d_radius, d_level, d_visible, n, p, best, second, idx);
-    return static_cast<int>(err);
+    const Streams r = {rows[0], rows[1], rows[2], rows[3], rows[4], rows[5],
+                       rows[6], rows[7], rows[8]};
+    return run(device, stream, q_bits, q_uv, q_oct, q_valid, d_bits, d_uv,
+               d_radius, d_level, d_visible, n, p, s, r, gated, best, second,
+               idx);
 }

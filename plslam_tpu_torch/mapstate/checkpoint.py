@@ -1,10 +1,12 @@
 """Map checkpoints and the numpy converter.
 
 `from_numpy` turns a dict of numpy arrays (one per `MapState` field, e.g.
-`np.asarray` of each field of a JAX `MapState`) into the port's `MapState`.
-`load_map` reads the npz that `plslam_tpu.mapstate.checkpoint.save_map`
-writes, with the JAX loader's defaults for fields added after a checkpoint
-was written.
+`np.asarray` of each field of a JAX `MapState`) into the port's `MapState`;
+`to_numpy` is its inverse. `save_map` writes the npz of
+`plslam_tpu.mapstate.checkpoint.save_map`, field for field, so each
+package's loader reads the other's files; `load_map` reads it, with the JAX
+loader's defaults for fields added after a checkpoint was written.
+`save_point_cloud` writes the JAX package's ASCII PLY of the valid points.
 """
 from __future__ import annotations
 
@@ -48,6 +50,29 @@ def from_numpy(arrays, device) -> MapState:
             raise ValueError(f"{name}: shape {a.shape}, expected {shape}")
         out[name] = torch.from_numpy(np.array(a, order="C")).to(device)
     return MapState(**out)
+
+
+def to_numpy(ms: MapState) -> dict:
+    """MapState -> {field: np.ndarray}, one host copy per field."""
+    return {name: getattr(ms, name).cpu().numpy() for name in FIELDS}
+
+
+def save_map(ms: MapState, path):
+    """Write the map as the JAX package's compressed npz checkpoint."""
+    np.savez_compressed(path, **to_numpy(ms))
+
+
+def save_point_cloud(ms: MapState, path):
+    """ASCII PLY of the valid map points (`System::SavePointCloud`), the
+    text the JAX package's writer produces."""
+    pts = ms.pt_xyz.cpu().numpy()[ms.pt_valid.cpu().numpy()]
+    with open(path, "w") as f:
+        f.write("ply\nformat ascii 1.0\n")
+        f.write(f"element vertex {len(pts)}\n")
+        f.write("property float x\nproperty float y\nproperty float z\n")
+        f.write("end_header\n")
+        for p in pts:
+            f.write(f"{p[0]:.6f} {p[1]:.6f} {p[2]:.6f}\n")
 
 
 def load_map(path, device) -> MapState:

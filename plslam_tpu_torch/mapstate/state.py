@@ -6,6 +6,11 @@ and validity masks. The field names, shapes and dtypes are those of the JAX
 (`mapstate/checkpoint.from_numpy`). `dataclasses.replace` stands in for
 `_replace`; functions documented as in-place update the tensors directly.
 `grow` returns a new map of larger capacities.
+
+A `MapState` is a pytree node (`torch.utils._pytree`), so `torch.func.vmap`
+maps over its fields. `stack`, `unstack` and `broadcast` build and take
+apart the stacked maps of S streams, every field with a leading stream axis
+(the JAX package's `tree_map(broadcast_to ...)` / `tree_map(stack ...)`).
 """
 from __future__ import annotations
 
@@ -13,6 +18,7 @@ import dataclasses
 from typing import NamedTuple
 
 import torch
+import torch.utils._pytree as pytree
 
 from ..vocab import bow
 
@@ -77,6 +83,28 @@ class MapState:
 
 FIELDS = tuple(f.name for f in dataclasses.fields(MapState))
 
+pytree.register_pytree_node(
+    MapState, lambda ms: ([getattr(ms, f) for f in FIELDS], None),
+    lambda fields, _: MapState(*fields))
+
+
+def stack(maps) -> MapState:
+    """The maps of S streams as one map, each field (S, ...)."""
+    return MapState(**{f: torch.stack([getattr(m, f) for m in maps])
+                       for f in FIELDS})
+
+
+def unstack(ms: MapState, S: int) -> list:
+    """The S per-stream maps of a stacked map, as views of its fields."""
+    return [MapState(**{f: getattr(ms, f)[s] for f in FIELDS})
+            for s in range(S)]
+
+
+def broadcast(ms: MapState, S: int) -> MapState:
+    """S copies of one map, stacked."""
+    return MapState(**{f: getattr(ms, f).expand(
+        (S,) + getattr(ms, f).shape).clone() for f in FIELDS})
+
 _F32, _U8, _B, _I32 = torch.float32, torch.uint8, torch.bool, torch.int32
 
 
@@ -129,15 +157,15 @@ def _primary_obs(ms: MapState):
     dup = torch.cat([torch.zeros((K, 1), dtype=torch.bool,
                                  device=srt.device),
                      (srt[:, 1:] == srt[:, :-1]) & (srt[:, 1:] >= 0)], dim=1)
-    return obs & torch.empty_like(dup).scatter_(1, order, ~dup)
+    return obs & torch.empty_like(dup).scatter(1, order, ~dup)
 
 
 def row_bitmap(rows, n: int):
     """(C, n) bool: row c is True at every id rows[c, j] >= 0."""
     C = rows.shape[0]
     bit = torch.zeros((C, n + 1), dtype=torch.bool, device=rows.device)
-    bit.scatter_(1, torch.where(rows >= 0, rows, n).long(),
-                 torch.ones_like(rows, dtype=torch.bool))
+    bit = bit.scatter(1, torch.where(rows >= 0, rows, n).long(),
+                      torch.ones_like(rows, dtype=torch.bool))
     return bit[:, :n]
 
 

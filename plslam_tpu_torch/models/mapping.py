@@ -44,13 +44,20 @@ def _scatter_rows(dst, slot, ok, src):
     """dst[slot[i]] = src[i] for every lane i with ok[i], in place. `slot`
     must be distinct over those lanes; other lanes write nothing, whatever
     their slot."""
+    dst.copy_(_with_rows(dst, slot, ok, src))
+
+
+def _with_rows(dst, slot, ok, src):
+    """`_scatter_rows` out of place: a new tensor (which `torch.func.vmap`
+    batches when `dst` is not batched)."""
     n_rows = dst.shape[0]
-    lane = torch.full((n_rows + 1,), -1, dtype=torch.long, device=dst.device)
-    lane.scatter_(0, torch.where(ok, slot, n_rows).long(),
-                  torch.arange(slot.shape[0], device=dst.device))
+    lane = torch.full((n_rows + 1,), -1, dtype=torch.long,
+                      device=dst.device).scatter(
+        0, torch.where(ok, slot, n_rows).long(),
+        torch.arange(slot.shape[0], device=dst.device))
     lane = lane[:n_rows]
     hit = (lane >= 0).view((n_rows,) + (1,) * (dst.dim() - 1))
-    dst.copy_(torch.where(hit, src[lane.clamp_min(0)], dst))
+    return torch.where(hit, src[lane.clamp_min(0)], dst)
 
 
 def _set_row(dst, k, value):
@@ -96,8 +103,7 @@ def insert_keyframe(cam, ms: MapState, feats: PointFeatures, T, matched_pt,
     P = ms.pt_xyz.shape[0]
     rows = [("kf_T", T), ("kf_valid", torch.ones((), dtype=torch.bool,
                                                   device=device)),
-            ("kf_frame_id", torch.full((), frame_id, dtype=torch.int32,
-                                       device=device)),
+            ("kf_frame_id", _index(frame_id, device, torch.int32)),
             ("kf_uv", feats.uv_un), ("kf_octave", feats.octave),
             ("kf_angle", feats.angle), ("kf_desc", feats.desc),
             ("kf_kp_valid", feats.valid), ("kf_pt_idx", matched_pt),
@@ -392,8 +398,9 @@ def create_new_lines(cam, ms: MapState, k_new, k_ref, nn_ratio: float = 0.75,
     c1 = se3.se3_inv(T1)[:3, 3]
     c2 = se3.se3_inv(T2)[:3, 3]
     pt_d = torch.linalg.vector_norm(ms.pt_xyz - c1, dim=-1)
-    scene_d = torch.nan_to_num(torch.quantile(
-        torch.where(ms.pt_valid, pt_d, torch.nan), 0.5), nan=1.0)
+    pt_d = torch.where(ms.pt_valid, pt_d, torch.nan)
+    scene_d = torch.where(torch.isnan(pt_d).any(), 1.0,
+                          hamming.nanmedian(pt_d))
     sane = ((torch.linalg.vector_norm(Xb - Xa, dim=-1) < 3.0 * scene_d)
             & (torch.linalg.vector_norm(0.5 * (Xa + Xb) - c1, dim=-1)
                < 10.0 * scene_d))
@@ -516,8 +523,8 @@ def loop_fuse(cam, ms: MapState, kf, cand_mask, radius: float = 4.0,
     is_new = bind & (old < 0)
     # duplicate id -> loop point id (identity elsewhere), map-wide
     lane = torch.full((P + 1,), -1, dtype=torch.long, device=dev)
-    lane.scatter_reduce_(0, torch.where(is_dup, oldc, P),
-                         torch.arange(N, device=dev), reduce="amax")
+    lane = lane.scatter_reduce(0, torch.where(is_dup, oldc, P),
+                               torch.arange(N, device=dev), reduce="amax")
     lane = lane[:P]
     lut = torch.where(lane >= 0, idx[lane.clamp_min(0)],
                       torch.arange(P, device=dev))
@@ -609,8 +616,8 @@ def fuse_duplicate_points(ms: MapState, n_recent: int = 1024,
             & (d3 < max_dist3d) & (D <= max_hamming))
     target = torch.argmax(cand.to(torch.uint8), dim=1)   # first older match
     has_dup = cand.any(dim=1)
-    repl = torch.arange(P, device=device)
-    repl[r_ids] = torch.where(has_dup, target, r_ids)
+    repl = torch.arange(P, device=device).index_put(
+        (r_ids,), torch.where(has_dup, target, r_ids))
     pid = ms.kf_pt_idx.clamp(0, P - 1).long()
     ms.kf_pt_idx.copy_(torch.where(ms.kf_pt_idx >= 0, repl[pid],
                                    ms.kf_pt_idx))
@@ -649,8 +656,8 @@ def fuse_duplicate_lines(ms: MapState, n_recent: int = 256,
             & (D <= max_hamming))
     target = torch.argmax(cand.to(torch.uint8), dim=1)   # first older match
     has_dup = cand.any(dim=1)
-    repl = torch.arange(Lc, device=device)
-    repl[r_ids] = torch.where(has_dup, target, r_ids)
+    repl = torch.arange(Lc, device=device).index_put(
+        (r_ids,), torch.where(has_dup, target, r_ids))
     lid = ms.kf_ln_idx.clamp(0, Lc - 1).long()
     ms.kf_ln_idx.copy_(torch.where(ms.kf_ln_idx >= 0, repl[lid],
                                    ms.kf_ln_idx))
@@ -681,7 +688,7 @@ def dedup_kf_point_rows(cam, ms: MapState) -> MapState:
     tgt_s = tgt.gather(1, order)
     keep_s = torch.cat([torch.ones_like(tgt_s[:, :1], dtype=torch.bool),
                         tgt_s[:, 1:] != tgt_s[:, :-1]], dim=1) | (tgt_s == P)
-    keep = torch.empty_like(keep_s).scatter_(1, order, keep_s)
+    keep = torch.empty_like(keep_s).scatter(1, order, keep_s)
     ms.kf_pt_idx.copy_(torch.where(keep, rows, -1))
     return ms
 
@@ -731,9 +738,9 @@ def cull_keyframes(ms: MapState, k_current, keep_recent: int = 3,
     # observers of each point at octave <= t, for every threshold t
     buckets = torch.zeros(n_levels * P, dtype=torch.int32,
                           device=pid.device)
-    buckets.index_add_(0, (oct_b * P + pid).reshape(-1),
-                       (bound & ms.kf_valid[:, None]).reshape(-1)
-                       .to(torch.int32))
+    buckets = buckets.index_add(0, (oct_b * P + pid).reshape(-1),
+                                (bound & ms.kf_valid[:, None]).reshape(-1)
+                                .to(torch.int32))
     cnt_le = torch.cumsum(buckets.reshape(n_levels, P), 0, dtype=torch.int32)
     cnt = cnt_le[(oct_b + 1).clamp(0, n_levels - 1), pid] - 1   # others
     n_bound = bound.sum(1)
@@ -778,21 +785,23 @@ def _select(win_idx, win_obs, valid, budget: int, rank=None):
     scores = torch.where(observed, rank, -1)
     _, sel = _top(scores, budget)
     sel_ok = observed[sel]
-    lookup = torch.full((n,), -1, dtype=torch.int32, device=valid.device)
-    lookup[sel] = torch.where(sel_ok, torch.arange(
-        budget, dtype=torch.int32, device=valid.device), -1)
+    lookup = torch.full((n,), -1, dtype=torch.int32,
+                        device=valid.device).index_put(
+        (sel,), torch.where(sel_ok, torch.arange(
+            budget, dtype=torch.int32, device=valid.device), -1))
     slot = torch.where(win_obs, lookup[win_idx.clamp(0, n - 1).long()], -1)
     return sel, sel_ok, slot
 
 
 def _grid(base, slot, has, values):
     """base (W, S, ...) with base[w, slot[w, m]] = values[w, m] for the
-    lanes `has`, in place (the accepted lanes only)."""
+    lanes `has` (the accepted lanes only), as a new tensor."""
     W, S = base.shape[:2]
     flat = slot + S * torch.arange(W, device=slot.device)[:, None]
-    _scatter_rows(base.view((W * S,) + base.shape[2:]), flat.reshape(-1),
-                  has.reshape(-1), values.reshape((-1,) + base.shape[2:]))
-    return base
+    return _with_rows(base.reshape((W * S,) + base.shape[2:]),
+                      flat.reshape(-1), has.reshape(-1),
+                      values.reshape((-1,) + base.shape[2:])).reshape(
+                          base.shape)
 
 
 def ba_select(ms: MapState, sigma2_levels, window: int = 8,

@@ -62,7 +62,7 @@ import torch
 import torch.utils._pytree as pytree
 
 from ..geometry import camera, se3, triangulation
-from ..mapstate import state as mstate
+from ..mapstate import checkpoint, state as mstate
 from ..models import mapping, step_graph, tracking
 from ..models.loop_closing import LoopClosing, _to_host_async
 from ..ops import extract, lines, stereo
@@ -213,8 +213,9 @@ class System:
     the JAX package's: `track_monocular`, `track_synced`, `track_chunked`,
     `track_rgbd`, `track_stereo`, `trajectory`, `poses`, the TUM/KITTI
     trajectory writers, `n_map_points`, `n_keyframes`, `reset`, `flush`,
-    `finish_gba`, `run_global_ba`, `shutdown` and the localization-mode
-    toggles. On CUDA the per-frame steps replay as CUDA graphs unless
+    `finish_gba`, `run_global_ba`, `shutdown`, the localization-mode
+    toggles and the map I/O (`save_map`, `load_map`, `save_point_cloud`).
+    On CUDA the per-frame steps replay as CUDA graphs unless
     `use_graphs` is False (the JAX package's `use_jit`); `graphs` holds
     their counts."""
 
@@ -990,6 +991,32 @@ class System:
         kf_T = self.ms.kf_T.cpu().numpy()
         n = min(int(self.ms.n_kf), len(self.kf_timestamps))
         _write_tum(path, [(self.kf_timestamps[k], kf_T[k]) for k in range(n)])
+
+    def save_map(self, path: str):
+        """Map checkpoint (the JAX package's npz, field for field)."""
+        checkpoint.save_map(self.ms, path)
+
+    def load_map(self, path: str):
+        """Bind the map of a checkpoint (either package's). The graphs
+        capture anew on it, and the host copies of its counts follow it:
+        the keyframe count, the capacities (the loop closer's too) and the
+        occupancy that growth reads. The JAX package's `load_map` sets the
+        map alone (ROADMAP Queue 3). The tracking state (pose, velocity,
+        NOT_INITIALIZED / OK) is left as it was."""
+        ms = checkpoint.load_map(path, self.device)
+        self.ms = ms
+        K, N = ms.kf_pt_idx.shape
+        self.map_cfg = self.map_cfg._replace(
+            max_kf=K, max_pt=ms.pt_xyz.shape[0], max_ln=ms.ln_valid.shape[0],
+            n_kp=N, n_lf=ms.kf_ln_idx.shape[1])
+        if self.loop_closer is not None:
+            self.loop_closer.map_cfg = self.map_cfg
+        self.n_kf_host = int(ms.n_kf)
+        self._occupancy = (int(ms.n_pt), int(ms.n_ln))
+
+    def save_point_cloud(self, path: str):
+        """`System::SavePointCloud`: ASCII PLY of the valid map points."""
+        checkpoint.save_point_cloud(self.ms, path)
 
     def save_trajectory_kitti(self, path: str):
         with open(path, "w") as f:

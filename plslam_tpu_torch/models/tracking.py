@@ -58,8 +58,8 @@ def _bitmap(n: int, idx, on):
     """(n,) bool: True at idx[i] wherever on[i] (idx may be out of range
     where on is False)."""
     hits = torch.zeros(n, dtype=torch.int32, device=idx.device)
-    hits.index_add_(0, idx.reshape(-1).clamp(0, n - 1).long(),
-                    on.reshape(-1).to(torch.int32))
+    hits = hits.index_add(0, idx.reshape(-1).clamp(0, n - 1).long(),
+                          on.reshape(-1).to(torch.int32))
     return hits > 0
 
 
@@ -179,9 +179,9 @@ def _match_lines_against_map(cam, ms: MapState, lfeats: LineFeatures, T,
                                ms.kf_T[:, :3, 3])                    # (K, 3)
     lid = ms.kf_ln_idx.clamp(0, L - 1).reshape(-1).long()
     has = (ms.kf_ln_idx >= 0) & ms.kf_valid[:, None]                 # (K, M)
-    cnt = torch.zeros(L, device=A.device).index_add_(
+    cnt = torch.zeros(L, device=A.device).index_add(
         0, lid, has.reshape(-1).to(torch.float32))
-    csum = torch.zeros((L, 3), device=A.device).index_add_(
+    csum = torch.zeros((L, 3), device=A.device).index_add(
         0, lid, torch.where(has[..., None], kf_centers[:, None, :],
                             0.0).reshape(-1, 3))
     mid3 = 0.5 * (A + B)

@@ -92,9 +92,9 @@ def _scatter(nb: int, root, vals, fill, reduce=None):
     buffer whose last slot takes the non-line blocks."""
     out = torch.full((nb + 1,), fill, dtype=vals.dtype, device=vals.device)
     if reduce is None:
-        out.index_add_(0, root, vals)
+        out = out.index_add(0, root, vals)
     else:
-        out.scatter_reduce_(0, root, vals, reduce=reduce)
+        out = out.scatter_reduce(0, root, vals, reduce=reduce)
     return out[:nb]
 
 

@@ -14,6 +14,14 @@ products (torch contracts einsum operands left to right). With `obs_ur` (a
 depth sensor's right-image columns) every point cell has C = 3 residual
 components, the third zero for monocular observations, and stereo cells are
 gated at chi2 7.815 instead of 5.991.
+
+With `n_shards` > 1 the landmark axes (points and lines) are cut into that
+many ranges, the one-card form of the JAX package's landmark-sharded BA
+(`plslam_tpu/parallel/sharded_ba.py`): each range's Schur blocks are
+reduced in turn into the camera system and its right-hand side, a running
+sum in place of the `psum`, and formed again for the back-substitution, so
+only one range's (K, P / n_shards, 6, 3) blocks are alive at a time. The
+costs that decide each step are summed over the ranges the same way.
 """
 from __future__ import annotations
 
@@ -103,11 +111,42 @@ def _huber(chi2, gate, robust: bool):
     return residuals.huber_weight(chi2, gate) if robust else 1.0
 
 
-def _solve_lm_step(prob, cam, kf_T, pt_xyz, ln_xyz, obs_in, ln_in, lam,
-                   robust: bool):
-    """One damped normal-equations solve with Schur elimination of the
-    landmarks; returns the stepped (kf_T, pt_xyz, ln_xyz)."""
-    K = prob.kf_T.shape[0]
+def _shard(prob: BAProblem, a: int, b: int, c: int, d: int) -> BAProblem:
+    """The window with its points cut to [a, b) and its lines to [c, d)."""
+    info = prob.ln_info
+    return prob._replace(
+        pt_xyz=prob.pt_xyz[a:b], pt_mask=prob.pt_mask[a:b],
+        obs_uv=prob.obs_uv[:, a:b], obs_mask=prob.obs_mask[:, a:b],
+        obs_sigma2=prob.obs_sigma2[:, a:b],
+        obs_ur=None if prob.obs_ur is None else prob.obs_ur[:, a:b],
+        ln_xyz=prob.ln_xyz[c:d], ln_mask=prob.ln_mask[c:d],
+        ln_obs_l2d=prob.ln_obs_l2d[:, c:d],
+        ln_obs_mask=prob.ln_obs_mask[:, c:d],
+        ln_info=info[c:d] if torch.is_tensor(info) and info.dim() else info)
+
+
+def _sharded(prob: BAProblem, n_shards: int, pt_xyz, ln_xyz, obs_in,
+             ln_in):
+    """[(sub-window, pt_xyz, ln_xyz, obs_in, ln_in)] cut to each landmark
+    shard's ranges."""
+    if n_shards == 1:
+        return [(prob, pt_xyz, ln_xyz, obs_in, ln_in)]
+    P, L = prob.pt_mask.shape[0], prob.ln_mask.shape[0]
+    sp, sl = -(-P // n_shards), -(-L // n_shards)   # the last one shorter
+    out = []
+    for i in range(n_shards):
+        a, b = min(i * sp, P), min((i + 1) * sp, P)
+        c, d = min(i * sl, L), min((i + 1) * sl, L)
+        out.append((_shard(prob, a, b, c, d), pt_xyz[a:b], ln_xyz[c:d],
+                    obs_in[:, a:b], ln_in[:, c:d]))
+    return out
+
+
+def _landmark_blocks(prob, cam, kf_T, pt_xyz, ln_xyz, obs_in, ln_in, lam,
+                     robust: bool):
+    """The normal-equation blocks of one landmark range: the camera blocks
+    (Hcc, bc), the damped inverse landmark blocks with their right-hand
+    sides and camera cross blocks (Hpp_inv, bp, Hcp, Hll_inv, bl, Hcl)."""
     dev = kf_T.device
     r, Jc, Jp, chi2, z, gate = _point_terms(prob, kf_T, pt_xyz, cam)
     m = ((prob.obs_mask & obs_in & (z > 0)).to(torch.float32)
@@ -142,34 +181,30 @@ def _solve_lm_step(prob, cam, kf_T, pt_xyz, ln_xyz, obs_in, ln_in, lam,
         + 1e-6 * eye3
     Hpp_inv = inv3x3(Hpp_d) * prob.pt_mask[:, None, None]
     Hll_inv = inv3x3(Hll_d) * prob.ln_mask[:, None, None, None]
+    return Hcc, bc, Hpp_inv, bp, Hcp, Hll_inv, bl, Hcl
 
-    # Schur complement: S[k,q] = Hcc[k] delta_kq - sum_p Hcp[k,p]
-    # Hpp_inv[p] Hcp[q,p]^T (+ lines)
+
+def _reduced_camera_system(blocks):
+    """One landmark range's share of the Schur complement, S (K, K, 6, 6)
+    and bs (K, 6): S[k,q] = Hcc[k] delta_kq - sum_p Hcp[k,p] Hpp_inv[p]
+    Hcp[q,p]^T (+ lines)."""
+    Hcc, bc, Hpp_inv, bp, Hcp, Hll_inv, bl, Hcl = blocks
+    K = Hcc.shape[0]
     HcpHi = torch.einsum("kpab,pbc->kpac", Hcp, Hpp_inv)       # (K,P,6,3)
     HclHi = torch.einsum("kleab,lebc->kleac", Hcl, Hll_inv)
-    eyeK = torch.eye(K, device=dev)[:, :, None, None]
+    eyeK = torch.eye(K, device=Hcc.device)[:, :, None, None]
     S = (eyeK * Hcc[:, None]
          - torch.einsum("kpac,qpdc->kqad", HcpHi, Hcp)
          - torch.einsum("kleac,qledc->kqad", HclHi, Hcl))
     bs = (bc - torch.einsum("kpac,pc->ka", HcpHi, bp)
           - torch.einsum("kleac,lec->ka", HclHi, bl))
+    return S, bs
 
-    # fixed cameras: zero rows/cols, identity diagonal; damp the diagonal
-    free_c = (prob.kf_mask & ~prob.kf_fixed).to(torch.float32)
-    S = S * (free_c[:, None] * free_c[None, :])[:, :, None, None]
-    bs = bs * free_c[:, None]
-    eye6 = torch.eye(6, device=dev)
-    diagS = torch.diagonal(torch.diagonal(S, dim1=0, dim2=1),
-                           dim1=0, dim2=1)                      # (K, 6)
-    damp = lam * diagS.clamp_min(1e-6)[:, :, None] * eye6
-    S = S + eyeK * (damp + (1.0 - free_c)[:, None, None] * eye6
-                    + 1e-6 * eye6)[:, None]
-    Sd = S.permute(0, 2, 1, 3).reshape(K * 6, K * 6)
-    dc = torch.linalg.solve_ex(Sd, bs.reshape(K * 6, 1),
-                               check_errors=False).result.reshape(K, 6)
-    dc = dc * free_c[:, None]
 
-    # back-substitute the landmarks, then a per-landmark trust region
+def _back_substitute(prob, blocks, dc):
+    """The landmark steps (dp, dl) of one range given the camera step dc,
+    each held to the per-landmark trust region."""
+    _, _, Hpp_inv, bp, Hcp, Hll_inv, bl, Hcl = blocks
     dp = torch.einsum("pab,pb->pa", Hpp_inv,
                       bp - torch.einsum("kpab,ka->pb", Hcp, dc))
     dl = torch.einsum("leab,leb->lea", Hll_inv,
@@ -181,9 +216,50 @@ def _solve_lm_step(prob, cam, kf_T, pt_xyz, ln_xyz, obs_in, ln_in, lam,
         n = torch.linalg.vector_norm(d, dim=-1, keepdim=True)
         return d * torch.clamp(LANDMARK_MAX_STEP / n.clamp_min(1e-12),
                                max=1.0)
+    return clamp(dp), clamp(dl)
+
+
+def _solve_lm_step(prob, cam, kf_T, pt_xyz, ln_xyz, obs_in, ln_in, lam,
+                   robust: bool, n_shards: int = 1):
+    """One damped normal-equations solve with Schur elimination of the
+    landmarks, their ranges reduced in turn (`n_shards`); returns the
+    stepped (kf_T, pt_xyz, ln_xyz)."""
+    K = prob.kf_T.shape[0]
+    dev = kf_T.device
+    shards = _sharded(prob, n_shards, pt_xyz, ln_xyz, obs_in, ln_in)
+    blocks = lambda sh: _landmark_blocks(sh[0], cam, kf_T, *sh[1:], lam,
+                                         robust)
+    kept = S = bs = None
+    for sh in shards:
+        b = blocks(sh)
+        S_i, bs_i = _reduced_camera_system(b)
+        S, bs = (S_i, bs_i) if S is None else (S + S_i, bs + bs_i)
+        kept = b if n_shards == 1 else None
+
+    # fixed cameras: zero rows/cols, identity diagonal; damp the diagonal
+    free_c = (prob.kf_mask & ~prob.kf_fixed).to(torch.float32)
+    S = S * (free_c[:, None] * free_c[None, :])[:, :, None, None]
+    bs = bs * free_c[:, None]
+    eyeK = torch.eye(K, device=dev)[:, :, None, None]
+    eye6 = torch.eye(6, device=dev)
+    diagS = torch.diagonal(torch.diagonal(S, dim1=0, dim2=1),
+                           dim1=0, dim2=1)                      # (K, 6)
+    damp = lam * diagS.clamp_min(1e-6)[:, :, None] * eye6
+    S = S + eyeK * (damp + (1.0 - free_c)[:, None, None] * eye6
+                    + 1e-6 * eye6)[:, None]
+    Sd = S.permute(0, 2, 1, 3).reshape(K * 6, K * 6)
+    dc = torch.linalg.solve_ex(Sd, bs.reshape(K * 6, 1),
+                               check_errors=False).result.reshape(K, 6)
+    dc = dc * free_c[:, None]
+
+    # back-substitute the landmarks, range by range
+    steps = [_back_substitute(sh[0], kept if kept is not None
+                              else blocks(sh), dc) for sh in shards]
+    dp = torch.cat([d for d, _ in steps]) if n_shards > 1 else steps[0][0]
+    dl = torch.cat([d for _, d in steps]) if n_shards > 1 else steps[0][1]
     kf_T_new = torch.where((prob.kf_mask & ~prob.kf_fixed)[:, None, None],
                            se3.se3_exp(dc) @ kf_T, kf_T)
-    return kf_T_new, pt_xyz + clamp(dp), ln_xyz + clamp(dl)
+    return kf_T_new, pt_xyz + dp, ln_xyz + dl
 
 
 def _rho(chi2, gate, robust: bool):
@@ -195,6 +271,17 @@ def _rho(chi2, gate, robust: bool):
 
 
 def _total_cost(prob, cam, kf_T, pt_xyz, ln_xyz, obs_in, ln_in,
+                robust: bool, n_shards: int = 1):
+    """The (robust) cost of the window, a running sum over the landmark
+    shards."""
+    cost = None
+    for sh in _sharded(prob, n_shards, pt_xyz, ln_xyz, obs_in, ln_in):
+        c = _range_cost(sh[0], cam, kf_T, *sh[1:], robust)
+        cost = c if cost is None else cost + c
+    return cost
+
+
+def _range_cost(prob, cam, kf_T, pt_xyz, ln_xyz, obs_in, ln_in,
                 robust: bool):
     _, _, _, chi2, z, gate = _point_terms(prob, kf_T, pt_xyz, cam)
     c = torch.where(prob.obs_mask & obs_in & (z > 0),
@@ -216,23 +303,24 @@ class LMState(NamedTuple):
     cost: torch.Tensor
 
 
-def ba_init(prob: BAProblem, cam, robust: bool = True) -> LMState:
+def ba_init(prob: BAProblem, cam, robust: bool = True,
+            n_shards: int = 1) -> LMState:
     c0 = _total_cost(prob, cam, prob.kf_T, prob.pt_xyz, prob.ln_xyz,
-                     prob.obs_mask, prob.ln_obs_mask, robust)
+                     prob.obs_mask, prob.ln_obs_mask, robust, n_shards)
     return LMState(prob.kf_T, prob.pt_xyz, prob.ln_xyz, prob.obs_mask,
                    prob.ln_obs_mask, torch.full_like(c0, 1e-4), c0)
 
 
 def ba_rounds(prob: BAProblem, cam, st: LMState, n_iters: int,
-              robust: bool = True) -> LMState:
+              robust: bool = True, n_shards: int = 1) -> LMState:
     """`n_iters` LM iterations from `st`; a step is kept when it lowers
-    the cost to a finite value."""
+    the cost (summed over the landmark shards) to a finite value."""
     for _ in range(n_iters):
         T2, p2, l2 = _solve_lm_step(prob, cam, st.kf_T, st.pt_xyz,
                                     st.ln_xyz, st.obs_in, st.ln_in, st.lam,
-                                    robust)
+                                    robust, n_shards)
         c_new = _total_cost(prob, cam, T2, p2, l2, st.obs_in, st.ln_in,
-                            robust)
+                            robust, n_shards)
         ok = (c_new < st.cost) & torch.isfinite(c_new)
         st = st._replace(
             kf_T=torch.where(ok, T2, st.kf_T),
@@ -252,31 +340,35 @@ def _verdicts(prob, cam, st: LMState):
     return obs_in, prob.ln_obs_mask & lep[..., 0] & lep[..., 1]
 
 
-def ba_demote(prob: BAProblem, cam, st: LMState) -> LMState:
+def ba_demote(prob: BAProblem, cam, st: LMState,
+              n_shards: int = 1) -> LMState:
     """Chi2 outlier demotion between the two LM phases; resets lambda and
     the reference cost."""
     obs_in, ln_in = _verdicts(prob, cam, st)
     c0 = _total_cost(prob, cam, st.kf_T, st.pt_xyz, st.ln_xyz, obs_in,
-                     ln_in, True)
+                     ln_in, True, n_shards)
     return st._replace(obs_in=obs_in, ln_in=ln_in,
                        lam=torch.full_like(st.lam, 1e-4), cost=c0)
 
 
-def ba_finalize(prob: BAProblem, cam, st: LMState) -> BAResult:
+def ba_finalize(prob: BAProblem, cam, st: LMState,
+                n_shards: int = 1) -> BAResult:
     """Final chi2 verdicts (the observations to erase from the map)."""
     obs_inlier, ln_obs_inlier = _verdicts(prob, cam, st)
     cost = _total_cost(prob, cam, st.kf_T, st.pt_xyz, st.ln_xyz, obs_inlier,
-                       ln_obs_inlier, False)
+                       ln_obs_inlier, False, n_shards)
     return BAResult(st.kf_T, st.pt_xyz, st.ln_xyz, obs_inlier,
                     ln_obs_inlier, cost)
 
 
 def bundle_adjust(prob: BAProblem, cam, iters_a: int = 5,
-                  iters_b: int = 10) -> BAResult:
+                  iters_b: int = 10, n_shards: int = 1) -> BAResult:
     """`iters_a` robust iterations -> chi2 demotion -> `iters_b` more ->
-    final verdicts (`LocalBundleAdjustmentWithLine`'s staged schedule)."""
-    st = ba_init(prob, cam)
-    st = ba_rounds(prob, cam, st, iters_a, robust=True)
-    st = ba_demote(prob, cam, st)
-    st = ba_rounds(prob, cam, st, iters_b, robust=True)
-    return ba_finalize(prob, cam, st)
+    final verdicts (`LocalBundleAdjustmentWithLine`'s staged schedule),
+    the landmark axes reduced in `n_shards` ranges (1: all at once)."""
+    kw = dict(n_shards=n_shards)
+    st = ba_init(prob, cam, **kw)
+    st = ba_rounds(prob, cam, st, iters_a, robust=True, **kw)
+    st = ba_demote(prob, cam, st, **kw)
+    st = ba_rounds(prob, cam, st, iters_b, robust=True, **kw)
+    return ba_finalize(prob, cam, st, **kw)

@@ -80,8 +80,11 @@ def _normal_equations(cam, T, obs: PoseObs, pt_in, ln_in, robust: bool):
     m_p = (obs.pt_mask & pt_in & (z_p > 0)).to(torch.float32) * w_p
     if robust:
         m_p = m_p * residuals.huber_weight(chi2_p, gate_p)
-    H_p = torch.einsum("nij,nik,n->jk", J_p, J_p, m_p)
-    b_p = -torch.einsum("nij,ni,n->j", J_p, r_p, m_p)
+    # [J | r] products give H and J^T r in one matrix product each, whose
+    # sums run in the same order whether or not the call is batched over
+    # streams (`torch.func.vmap`; a matrix-vector J^T r is not)
+    Jr_p = torch.cat([J_p, r_p[..., None]], -1)
+    G_p = torch.einsum("nij,nik,n->jk", Jr_p, Jr_p, m_p)
 
     r_l, J_l, _, z_l = residuals.line_endpoint_residual(cam, T, obs.ln_xyz,
                                                         obs.ln_l2d)
@@ -89,9 +92,10 @@ def _normal_equations(cam, T, obs: PoseObs, pt_in, ln_in, robust: bool):
     m_l = (obs.ln_mask & ln_in & (z_l > 0)).to(torch.float32) * obs.ln_info
     if robust:
         m_l = m_l * residuals.huber_weight(chi2_l, CHI2_LINE)
-    H_l = torch.einsum("nj,nk,n->jk", J_l, J_l, m_l)
-    b_l = -torch.einsum("nj,n,n->j", J_l, r_l, m_l)
-    return H_p + H_l, b_p + b_l, chi2_p, chi2_l, z_p, z_l, gate_p
+    Jr_l = torch.cat([J_l, r_l[..., None]], -1)
+    G_l = torch.einsum("nj,nk,n->jk", Jr_l, Jr_l, m_l)
+    return (G_p[:6, :6] + G_l[:6, :6], -G_p[:6, 6] - G_l[:6, 6], chi2_p,
+            chi2_l, z_p, z_l, gate_p)
 
 
 def _rho(chi2, gate, robust: bool):

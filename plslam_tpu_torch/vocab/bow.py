@@ -46,7 +46,7 @@ def bow_vector(desc_bits, valid):
     """(N,256),(N,) -> (N_WORDS,) L1-normalized word histogram."""
     w = words_of(desc_bits).long()
     hist = torch.zeros(N_WORDS, dtype=torch.float32, device=desc_bits.device)
-    hist.index_add_(0, w, valid.to(torch.float32))
+    hist = hist.index_add(0, w, valid.to(torch.float32))
     return hist / hist.sum().clamp_min(1e-9)
 
 

@@ -4,6 +4,8 @@ plslam_tpu, so they also run where only PyTorch is installed:
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest
 """
+from functools import partial
+
 import numpy as np
 import pytest
 import torch
@@ -313,3 +315,149 @@ def test_a_failed_capture_raises():
     with pytest.raises(RuntimeError):
         step(torch.ones(4, device="cuda"))
     assert graphs.captures == 0
+
+
+def _stacked_inputs(seed, S, n, p):
+    """S streams' random search inputs, stacked on a leading axis."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    rng = np.random.default_rng(seed)
+    one = [random_search_inputs(rng, n, p) for _ in range(S)]
+    return [torch.from_numpy(np.stack([o[k] for o in one])).cuda()
+            for k in one[0]]
+
+
+def _assert_batched_matches_singles(a, in_dims, gated):
+    """One batched launch under vmap against S single launches and the
+    batched plain version, bit for bit."""
+    S = next(t.shape[d] for t, d in zip(a, in_dims) if d is not None)
+    before = gated_match.gated_hamming_best2.launches
+    got = torch.func.vmap(
+        lambda *x: gated_match.gated_hamming_best2(*x, gated=gated),
+        in_dims=in_dims)(*a)
+    assert gated_match.gated_hamming_best2.launches == before + 1
+    # each stream's inputs as one search takes them (fresh, so aligned)
+    per = lambda s: [t if d is None else t.select(d, s).clone()
+                     for t, d in zip(a, in_dims)]
+    singles = [gated_match.gated_hamming_best2(*per(s), gated=gated)
+               for s in range(S)]
+    full = [t.expand((S,) + t.shape) if d is None else t.movedim(d, 0)
+            for t, d in zip(a, in_dims)]
+    plain = gated_match.gated_hamming_best2_reference(*full, gated=gated)
+    for k in range(3):
+        one = torch.stack([x[k] for x in singles])
+        assert got[k].dtype == one.dtype == plain[k].dtype
+        np.testing.assert_array_equal(got[k].cpu().numpy(),
+                                      one.cpu().numpy())
+        np.testing.assert_array_equal(got[k].cpu().numpy(),
+                                      plain[k].cpu().numpy())
+
+
+# The stream axis at the kernel's edge shapes: one stream with one pair, a
+# ragged query tile and map tile, and a map one past the tracking step's
+# (12289 points: a stream's rows start off 16-byte alignment).
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,n,p", [(1, 1, 1), (3, 81, 65), (2, 130, 257),
+                                   (2, 1024, 12289)])
+def test_batched_kernel_matches_single_launches(S, n, p):
+    a = _stacked_inputs(S + n + p, S, n, p)
+    for gated in (True, False):
+        _assert_batched_matches_singles(a, (0,) * 9, gated)
+
+
+@pytest.mark.cuda
+def test_batched_kernel_with_shared_inputs_and_a_dead_stream():
+    """A map shared by every stream (not batched), the gate fields of the
+    gates-off search shared too, and a stream whose queries are all
+    invalid."""
+    a = _stacked_inputs(7, 3, 200, 700)
+    a[3][1] = False
+    _assert_batched_matches_singles(
+        a[:4] + [t[0] for t in a[4:]], (0,) * 4 + (None,) * 5, True)
+    _assert_batched_matches_singles(
+        a[:5] + [t[0] for t in a[5:8]] + a[8:],
+        (0,) * 5 + (None,) * 3 + (0,), False)
+
+
+def _stream_setup(S=2, n_frames=8):
+    """S streams of the multistream phase's scenes at its configuration,
+    their depth maps on the card and their frames."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: CUDA graphs and the kernel")
+    import chip_smoke
+    cfg = chip_smoke.multistream_config()
+    out = [chip_smoke._render_stream((100 + s, n_frames, chip_smoke.WIDTH,
+                                      chip_smoke.HEIGHT, chip_smoke.FX))
+           for s in range(S)]
+    frames = np.stack([f for f, _ in out])
+    maps = chip_smoke.stream_maps(cfg, frames, np.stack([d for _, d in out]))
+    return cfg, maps, frames
+
+
+@pytest.mark.cuda
+def test_batched_steps_never_wait_for_the_device():
+    """The vmapped tracking step and the keyframe steps (every stream with
+    a free keyframe slot, and one without), eager, under torch's sync debug
+    mode "error": no op waits for the device (the precondition of
+    capturing them)."""
+    from plslam_tpu_torch.mapstate import state as mstate
+    from plslam_tpu_torch.parallel import multistream
+    cfg, maps, frames = _stream_setup(n_frames=6)
+    bt = multistream.BatchedTracker(cfg, 2, kf_interval=2,
+                                    device=torch.device("cuda", 0),
+                                    use_graphs=False)
+    bt.bootstrap(mstate.stack(maps))
+    step = bt._batched_step
+
+    def no_sync(*args, **kwargs):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return step(*args, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    bt._batched_step = no_sync
+    bt._steps = {kind: partial(no_sync, with_kf=kind != "track")
+                 for kind in ("track", "kf", "kf_masked")}
+    for j in range(5):              # keyframe, track, keyframe, track, and
+        if j == 4:                  # a keyframe with stream 1 counted full
+            bt.n_kf_host[1] = cfg.max_kf - 1
+        bt.step(frames[:, 1 + j])
+    assert bt.ms.n_kf.tolist() == [4, 3]
+
+
+@pytest.mark.cuda
+def test_graphed_batched_step_matches_eager():
+    """The graphed `BatchedTracker` against the eager one from the same
+    maps over 7 frames (keyframe steps captured and replayed): poses,
+    scalars and maps bit for bit."""
+    import chip_smoke
+    cfg, maps, frames = _stream_setup()
+    runs = [chip_smoke.run_batched(cfg, maps, frames, 7, use_graphs=g)
+            for g in (True, False)]
+    np.testing.assert_array_equal(runs[0]["poses"], runs[1]["poses"])
+    np.testing.assert_array_equal(runs[0]["scalars"], runs[1]["scalars"])
+    for f in ("pt_xyz", "pt_found", "kf_pt_idx", "n_kf", "n_pt", "n_ln"):
+        assert torch.equal(getattr(runs[0]["bt"].ms, f),
+                           getattr(runs[1]["bt"].ms, f)), f
+    assert (runs[0]["captures"], runs[0]["replays"]) == (2, 5)
+    assert runs[0]["launches"] == runs[1]["launches"] == 3 * 7
+
+
+@pytest.mark.cuda
+def test_round_robin_captures_once_per_step_key():
+    """`RoundRobinTracker`: every stream's chunk replays the System's one
+    frame graph, through device-to-device copies of its map into the bound
+    map, so nothing is captured after the first chunk, keyframe chunks
+    included."""
+    from plslam_tpu_torch.parallel import multistream
+    cfg, maps, frames = _stream_setup(S=3, n_frames=9)
+    rr = multistream.RoundRobinTracker(cfg, 3, kf_every_chunks=2,
+                                       device=torch.device("cuda", 0))
+    rr.bootstrap(maps)
+    caps = []
+    for c in range(4):
+        rr.step_chunks([frames[s, 1 + 2 * c:3 + 2 * c] for s in range(3)])
+        caps.append(rr.slam.graphs.captures)
+    assert caps == [caps[0]] * 4 and caps[0] >= 1
+    assert rr.slam.graphs.replays == 3 * 4 * 2 - caps[0]
+    assert [st["n_kf"] for st in rr.streams] == [3, 3, 3]

@@ -34,6 +34,7 @@ from plslam_tpu_torch.models import mapping as tmap, tracking as ttrk
 from plslam_tpu_torch.ops import extract as text, stereo as tst
 from plslam_tpu_torch.optim import local_ba as tba, pose_opt as tpo
 from plslam_tpu_torch.optim import residuals as tres
+from torch_threads import one_thread  # noqa: F401
 
 NF, LEVELS, FX, BASELINE = 512, 3, 500.0, 0.3
 BF = FX * BASELINE

@@ -8,6 +8,7 @@ import pytest
 
 from plslam_tpu_torch.datasets import synthetic
 from plslam_tpu_torch.models import system as tsys
+from torch_threads import one_thread  # noqa: F401
 
 STEREO_BASELINE = 0.3
 

@@ -26,6 +26,7 @@ from plslam_tpu_torch.geometry import camera as tcam
 from plslam_tpu_torch.mapstate import checkpoint as tckpt
 from plslam_tpu_torch.models import mapping as tmap, system as tsys
 from plslam_tpu_torch.ops import extract as text, lines as tlines
+from torch_threads import one_thread  # noqa: F401
 
 N_FRAMES = 6
 SMALL = dict(fx=500.0, fy=500.0, cx=320.0, cy=240.0, k1=0.0, k2=0.0, p1=0.0,

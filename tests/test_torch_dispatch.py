@@ -28,6 +28,7 @@ from plslam_tpu.datasets import synthetic as jsyn
 from plslam_tpu.models import system as jsys
 from plslam_tpu_torch.mapstate import checkpoint
 from plslam_tpu_torch.models import step_graph, system as tsys
+from torch_threads import one_thread  # noqa: F401
 
 CFG = dict(fx=500.0, fy=500.0, cx=320.0, cy=240.0, k1=0, k2=0, p1=0, p2=0,
            k3=0, n_features=384, n_levels=3, max_kf=8, max_pt=2048, n_lf=32,

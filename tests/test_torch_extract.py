@@ -20,6 +20,7 @@ from plslam_tpu.ops import pyramid as jpyr, select as jsel
 from plslam_tpu_torch.datasets import synthetic
 from plslam_tpu_torch.ops import extract as text, fast as tfast, orb as torb
 from plslam_tpu_torch.ops import pyramid as tpyr, select as tsel
+from torch_threads import one_thread  # noqa: F401
 
 H, W, LEVELS, NF = 240, 320, 3, 512
 JCFG = jext.ExtractorConfig(n_features=NF, n_levels=LEVELS)

@@ -11,6 +11,7 @@ import torch
 from chip_smoke import random_search_inputs
 from plslam_tpu.ops import hamming as jham
 from plslam_tpu_torch.ops import gated_match, hamming as tham
+from torch_threads import one_thread  # noqa: F401
 
 N, P = 200, 700   # the shape of tests/test_pallas_match.py, not tile-aligned
 

@@ -8,6 +8,7 @@ import torch
 
 from plslam_tpu.geometry import camera as jcam, se3 as jse3
 from plslam_tpu_torch.geometry import camera as tcam, se3 as tse3
+from torch_threads import one_thread  # noqa: F401
 
 ATOL = 1e-5
 

@@ -51,6 +51,7 @@ from plslam_tpu_torch.mapstate import checkpoint as tckpt
 from plslam_tpu_torch.models import mapping as tmap, tracking as ttrk
 from plslam_tpu_torch.ops import extract as text, hamming as tham
 from plslam_tpu_torch.ops import lines as tl, pyramid as tpyr
+from torch_threads import one_thread  # noqa: F401
 
 H, W, FX = 480, 640, 500.0
 NF, LEVELS, NLF = 256, 3, 96

@@ -20,6 +20,7 @@ from plslam_tpu_torch.geometry import camera as tcam
 from plslam_tpu_torch.mapstate import checkpoint as tckpt
 from plslam_tpu_torch.models import mapping as tmap
 from plslam_tpu_torch.optim import local_ba as tba
+from torch_threads import one_thread  # noqa: F401
 
 FX, W, H = 500.0, 640, 480
 JCAM = jcam.Camera.create(FX, FX, W / 2, H / 2, width=W, height=H)

@@ -40,6 +40,7 @@ from plslam_tpu_torch.models import loop_closing as tlc, mapping as tmap
 from plslam_tpu_torch.ops import extract as text
 from plslam_tpu_torch.optim import pose_graph as tpg, sim3_opt as tso
 from plslam_tpu_torch.solvers import horn as thorn
+from torch_threads import one_thread  # noqa: F401
 
 CFG = dict(fx=500.0, fy=500.0, cx=320.0, cy=240.0, n_features=512,
            n_levels=3, max_kf=16, max_pt=4096, ba_window=5, ba_points=1024,

@@ -33,6 +33,7 @@ from plslam_tpu_torch.models import system as tsys, tracking as ttrk
 from plslam_tpu_torch.ops import extract as text
 from plslam_tpu_torch.solvers import pnp as tpnp
 from plslam_tpu_torch.vocab import bow as tbow
+from torch_threads import one_thread  # noqa: F401
 
 CFG = dict(fx=500.0, fy=500.0, cx=320.0, cy=240.0, n_features=512,
            n_levels=3, max_kf=16, max_pt=4096, ba_window=5, ba_points=1024,

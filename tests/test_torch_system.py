@@ -1,20 +1,22 @@
-"""The PyTorch port's `System.track_monocular` against the JAX package's
-`System`, with lines on, over the same 28 rendered 640x480 frames of the
-system sequence (`make_scene(seed=1)`, orbit) at tests/test_e2e.py's small
-widths: 512 features, 3 levels, 16 keyframes x 4096 points, a 5 x 1024 BA
-window, 256 line slots; once with loop closing and growth off, and once
-with both on, 5 keyframe slots (so the map grows) and the young-map global
-BA up to the 4th keyframe.
+"""The PyTorch port's `System` against the JAX package's `System`: the
+public surface and the paths that need no full run. The two full runs over
+the 28 rendered 640x480 frames of the system sequence (`make_scene(seed=1)`,
+orbit) at tests/test_e2e.py's small widths (512 features, 3 levels, 16
+keyframes x 4096 points, a 5 x 1024 BA window, 256 line slots) are in
+tests/test_torch_system_runs.py (loop closing and growth off) and
+tests/test_torch_system_loop.py (both on, 5 keyframe slots, so the map
+grows, and the young-map global BA up to the 4th keyframe); their shared
+runner and bounds are here.
 
 Bounds: the same initialization frame; keyframe counts within 1; map
 points within 10%; map lines created within 2; the port's ATE after Sim3
 alignment below 5% of the span (the JAX package's gate); the two
 Sim3-aligned trajectories within 1% of the span of each other; with growth
-on, the same growth events. Plus the public surface: `SLAMConfig` and
-`from_yaml` as the JAX package's, the trajectory writers, a line mask read
-from `mask_path` as the JAX package reads it, relocalization of a LOST
-frame, and `NotImplementedError` for every option not ported yet
-(the dispatch paths: tests/test_torch_dispatch.py)."""
+on, the same growth events. Here: `SLAMConfig` and `from_yaml` as the JAX
+package's, a line mask read from `mask_path` as the JAX package reads it,
+relocalization of a LOST frame, the defaults' constructor, and
+`NotImplementedError` for every option not ported yet (the dispatch paths:
+tests/test_torch_dispatch.py)."""
 import dataclasses
 from pathlib import Path
 
@@ -25,6 +27,7 @@ import torch
 from plslam_tpu.models import system as jsys
 from plslam_tpu_torch.datasets import synthetic
 from plslam_tpu_torch.models import system as tsys
+from torch_threads import one_thread  # noqa: F401
 
 N_FRAMES = 28
 SMALL = dict(fx=500.0, fy=500.0, cx=320.0, cy=240.0, n_features=512,
@@ -59,35 +62,9 @@ def _both(cfg):
     return Ts, (j, *_run(j, frames)), (t, *_run(t, frames))
 
 
-@pytest.fixture(scope="module")
-def runs():
-    return _both(SMALL)
-
-
-@pytest.fixture(scope="module")
-def runs_loop():
-    return _both(LOOP)
-
-
 def _centers_span(Ts, idx):
     c = lambda T: -T[:3, :3].T @ T[:3, 3]
     return float(np.linalg.norm(c(Ts[idx[-1]]) - c(Ts[idx[0]])))
-
-
-def test_system_matches_jax_over_rendered_frames(runs):
-    _assert_within_bounds(runs)
-
-
-def test_system_with_loop_closing_and_growth_matches_jax(runs_loop):
-    """Loop closing (detection on every keyframe), growth and the young-map
-    global BA on: the same bounds and the same growth events."""
-    _, (j, _, _), (t, _, _) = runs_loop
-    _assert_within_bounds(runs_loop)
-    assert t.n_growths == j.n_growths >= 1
-    assert t.map_cfg._asdict() == j.map_cfg._asdict()
-    assert t.map_cfg.max_kf > LOOP["max_kf"]
-    assert t.loop_closer is not None and t.loop_closer.n_loops == 0
-    assert t.ms.kf_T.shape[0] == t.map_cfg.max_kf
 
 
 def _assert_within_bounds(runs):
@@ -116,33 +93,6 @@ def _assert_within_bounds(runs):
     assert gap < 0.01 * span
 
 
-def test_ate_rmse_matches_jax(runs):
-    from plslam_tpu.datasets import synthetic as jsyn
-    Ts, _, (_, _, traj) = runs
-    idx = [i for i in range(N_FRAMES) if i / 30.0 in traj]
-    est = np.stack([traj[i / 30.0] for i in idx])
-    for scale in (True, False):
-        assert synthetic.ate_rmse(est, Ts[idx], scale) == pytest.approx(
-            jsyn.ate_rmse(est, Ts[idx], scale), rel=1e-12)
-
-
-def test_trajectory_writers(runs, tmp_path):
-    """TUM, keyframe TUM and KITTI files: one line per entry, numbers as the
-    JAX package's writer prints them for the same poses."""
-    _, _, (t, _, _) = runs
-    t.save_trajectory_tum(str(tmp_path / "port.txt"))
-    jsys._write_tum(str(tmp_path / "jax.txt"), t.trajectory)
-    a = np.loadtxt(tmp_path / "port.txt")
-    b = np.loadtxt(tmp_path / "jax.txt")
-    assert a.shape == (len(t.trajectory), 8)
-    np.testing.assert_allclose(a, b, atol=2e-7)
-    t.save_keyframe_trajectory_tum(str(tmp_path / "kf.txt"))
-    assert np.loadtxt(tmp_path / "kf.txt").shape == (t.n_keyframes(), 8)
-    t.save_trajectory_kitti(str(tmp_path / "kitti.txt"))
-    assert np.loadtxt(tmp_path / "kitti.txt").shape == (len(t.trajectory), 12)
-    assert t.poses().shape == (len(t.trajectory), 4, 4)
-
-
 def test_slam_config_is_the_jax_one():
     fj = [(f.name, f.default) for f in dataclasses.fields(jsys.SLAMConfig)]
     ft = [(f.name, f.default) for f in dataclasses.fields(tsys.SLAMConfig)]
@@ -150,18 +100,6 @@ def test_slam_config_is_the_jax_one():
     path = str(ROOT / "examples" / "TUM1.yaml")
     assert dataclasses.asdict(tsys.SLAMConfig.from_yaml(path)) \
         == dataclasses.asdict(jsys.SLAMConfig.from_yaml(path))
-
-
-def test_system_with_lines_tracks(runs):
-    """With lines on, the port's System detects segments on every frame,
-    triangulates map lines at initialization and in the chain, and reports
-    line inliers per tracked frame."""
-    _, _, (t, init_t, _) = runs
-    assert t.line_detector is not None and t.line_detector.n_out == 256
-    assert int(t.ms.n_ln) >= 1
-    assert int(t.ms.kf_ln_valid[:t.n_keyframes()].sum(1).min()) >= 10
-    tracked = [s for s in t.stats if not s.get("lost")]
-    assert tracked and all("line_inliers" in s for s in tracked)
 
 
 def test_mask_path_reaches_detect_lines(tmp_path):

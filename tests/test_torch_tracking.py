@@ -26,6 +26,7 @@ from plslam_tpu_torch.mapstate import checkpoint as tckpt, state as tstate
 from plslam_tpu_torch.models import mapping as tmap, tracking as ttrk
 from plslam_tpu_torch.ops import extract as text, stereo as tstereo
 from plslam_tpu_torch.optim import pose_opt as tpo
+from torch_threads import one_thread  # noqa: F401
 
 H, W, LEVELS, NF = 240, 320, 3, 512
 FX = 250.0

@@ -25,6 +25,7 @@ from plslam_tpu_torch.datasets import synthetic
 from plslam_tpu_torch.models import tracking as ttrk
 from plslam_tpu_torch.ops import extract as text, hamming as tham
 from plslam_tpu_torch.solvers import twoview as ttv
+from torch_threads import one_thread  # noqa: F401
 
 NF, LEVELS = 512, 3
 K = np.array([[500.0, 0, 320], [0, 500.0, 240], [0, 0, 1]], np.float32)
