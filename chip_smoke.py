@@ -131,7 +131,35 @@ line detection as part of extraction.
    and frames/s per card at S = 1, 4 and 16 (frames 2-11 of each run,
    after the two captures), peak device memory, captures and replays; then
    `RoundRobinTracker` at S = 4, B = 6 over the same frames: its frames/s,
-   each stream's ATE and no capture after the first chunk.
+   each stream's ATE and no capture after the first chunk;
+12. the data phases, first a probe line (the versions of cv2, PIL and
+   matplotlib or "absent", whether the port's native loader built, the
+   decoder and the PNG writer the phases use):
+   (a) the photo head-to-head of scripts/ref_compare.py (300 frames of
+   `make_photo_scene(seed=5)`, the orbit of amplitude 3, the camera 4.5 m
+   toward the back wall, fx 500; rendered in worker processes) written as a
+   TUM sequence with its settings (1000 features, 8 levels, 128 lines) and
+   run through `examples.mono_tum.main`: exit 0, >= 290 trajectory rows,
+   no LOST frame after initialization, keyframe ATE after Sim3 alignment
+   (`utils/metrics`) below 5% of the span, printed beside the JAX
+   package's CPU run on the same files and the C++ reference's 0.00679,
+   with the driver's median and mean tracking ms, frames/s, keyframes, map
+   points, K1 launches and `PrefetchLoader.native`;
+   (b) `rgbd_tum` on the RGB-D phase's 18 frames (16-bit depth PNGs at a
+   DepthMapFactor of 5000, an associations file), `stereo_kitti` on the
+   stereo phase's 14 pairs (image_0, image_1, times.txt), `mono_kitti` and
+   `mono_euroc` on the system sequence in their layouts: exit 0 and a
+   trajectory file within the bars of the phase whose frames it used
+   (metric ATE < 0.03 m RGB-D, < 0.10 m stereo, < 5% of the span mono);
+   (c) a k=10, L=3 vocabulary trained on host descriptors of (a)'s frames:
+   `words_of` and `bow_vector` on the card bit-equal to the port on the CPU
+   and to `words_of_np`; tests/test_orbvoc.py's retrieval bar through the
+   installed tree vocabulary on the card, uninstalled afterwards;
+   (d) extraction with subpixel refinement on three photo frames on the
+   card against the port on the CPU: integer outputs equal, refined
+   keypoints within SUBPIX_TOL_PX;
+13. the bench: `python -m plslam_tpu_torch.bench` once as a subprocess:
+   exit 0, its JSON line with no null field and `degraded` false, printed.
 
 Any failed check exits non-zero. The last line is the device JSON; the line
 before it lists the kernels with their launch counts (every phase) and
@@ -1903,6 +1931,548 @@ def check_round_robin(cfg, maps, frames, Ts, launches, bad):
     return fps
 
 
+# ---------------------------------------------------------------------------
+# the data phases (items 12 and 13 of the module docstring)
+
+PHOTO_FRAMES, PHOTO_SEED, PHOTO_AMPLITUDE, PHOTO_Z = 300, 5, 3.0, 4.5
+PHOTO_MIN_ROWS = 290
+# scripts/ab_ours.py --cpu on the same files: the JAX package on the CPU
+# (keyframe ATE, all-frame ATE, keyframe and frame poses)
+PHOTO_JAX_CPU = dict(kf_ate=0.00684, ate=0.02521, kf_poses=10, poses=297)
+PHOTO_REF_KF_ATE = 0.00679    # the C++ reference, seed 5 (BASELINE.md:180)
+# scripts/ref_compare.py's settings for the head-to-head sequence (1000
+# features, 8 levels, 128 lines); the other data phases' are the SLAMConfig
+# defaults (1024 features, 256 lines)
+SETTINGS = """%YAML:1.0
+Camera.fx: 500.0
+Camera.fy: 500.0
+Camera.cx: 320.0
+Camera.cy: 240.0
+Camera.k1: 0.0
+Camera.k2: 0.0
+Camera.p1: 0.0
+Camera.p2: 0.0
+Camera.k3: 0.0
+Camera.width: 640
+Camera.height: 480
+Camera.fps: 30.0
+Camera.RGB: 1
+ORBextractor.nFeatures: {n_features}
+ORBextractor.scaleFactor: 1.2
+ORBextractor.nLevels: 8
+ORBextractor.iniThFAST: 20
+ORBextractor.minThFAST: 7
+LINEextractor.nLevels: 1
+LINEextractor.scaleFactor: 1.2
+LINEextractor.nFeatures: {n_lines}
+LINEextractor.min_line_length: 0
+"""
+DATA_MONO_FRAMES = 60          # mono_kitti / mono_euroc: the system sequence
+DEPTH_MAP_FACTOR = 5000.0      # the TUM RGB-D depth PNGs' units per metre
+EUROC_T0_NS = 1_403_636_579_763_555_584   # a EuRoC-like first timestamp
+EUROC_DT_NS = 33_333_333
+# tests/test_orbvoc.py's retrieval fixture and bar
+RETRIEVAL_FRAMES, RETRIEVAL_SEED, RETRIEVAL_AMPLITUDE = 24, 3, 2.2
+RETRIEVAL_P1 = 0.8
+VOCAB_TRAIN_EVERY = 10         # 12a frames the card vocabulary trains on
+VOCAB_CHECK_FRAMES = (5, 155, 295)
+SUBPIX_FRAMES = (0, 150, 299)
+# card against CPU refined keypoints: the same float32 parabola offsets on
+# score maps that agree to the pyramid's rounding
+SUBPIX_TOL_PX = 1e-4
+BENCH_TIMEOUT_S = 600
+
+
+def settings_yaml(extra: dict, n_features=1024, n_lines=256) -> str:
+    """A settings file for the renderer's camera (640x480, fx 500), the
+    `SLAMConfig` defaults unless given, and the `extra` keys."""
+    return SETTINGS.format(n_features=n_features, n_lines=n_lines) + "".join(
+        f"{k}: {v}\n" for k, v in extra.items())
+
+
+def photo_poses():
+    """scripts/ref_compare.py's head-to-head trajectory: the 300-frame
+    orbit of amplitude 3, the camera moved PHOTO_Z m toward the back
+    wall."""
+    from plslam_tpu_torch.datasets import synthetic
+    Ts = synthetic.trajectory(PHOTO_FRAMES, "orbit", amplitude=PHOTO_AMPLITUDE)
+    for T in Ts:
+        T[:3, 3] -= T[:3, :3] @ np.array([0.0, 0.0, PHOTO_Z], T.dtype)
+    return Ts
+
+
+def _render_photo(args):
+    """Frames of a photo scene at the given poses (a worker): uint8, or
+    float32 with `as_float`."""
+    seed, Ts, as_float = args
+    from plslam_tpu_torch.datasets import synthetic, textured
+    scene = textured.make_photo_scene(seed=seed, fx=FX, fy=FX)
+    out = [synthetic.render(scene, T) for T in Ts]
+    return np.stack(out) if as_float else \
+        np.stack([np.clip(f, 0, 255).astype(np.uint8) for f in out])
+
+
+def render_photo_sequences():
+    """In 8 worker processes: the head-to-head sequence (uint8, as written
+    to disk) and tests/test_orbvoc.py's retrieval sequence (float32)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    from plslam_tpu_torch.datasets import synthetic
+    Ts = photo_poses()
+    Ts_r = synthetic.trajectory(RETRIEVAL_FRAMES, "loop",
+                                amplitude=RETRIEVAL_AMPLITUDE)
+    jobs = [(PHOTO_SEED, Ts[i::8], False) for i in range(8)]
+    jobs += [(RETRIEVAL_SEED, Ts_r[i::4], True) for i in range(4)]
+    with ProcessPoolExecutor(8, mp_context=multiprocessing.get_context(
+            "spawn")) as pool:
+        out = list(pool.map(_render_photo, jobs))
+    frames = np.empty((PHOTO_FRAMES, HEIGHT, WIDTH), np.uint8)
+    for i in range(8):
+        frames[i::8] = out[i]
+    frames_r = np.empty((RETRIEVAL_FRAMES, HEIGHT, WIDTH), np.float32)
+    for i in range(4):
+        frames_r[i::4] = out[8 + i]
+    return Ts, frames, Ts_r, frames_r
+
+
+def data_probe() -> dict:
+    """What the data phases run on: the imaging packages' versions, the
+    native loader's build, the decoder and the PNG writer."""
+    import importlib
+    from plslam_tpu_torch.utils import native_loader
+    found = {}
+    for name in ("cv2", "PIL", "matplotlib"):
+        try:
+            found[name] = getattr(importlib.import_module(name),
+                                  "__version__", "?")
+        except ImportError:
+            found[name] = "absent"
+    t0 = time.perf_counter()
+    native = native_loader.native_available()
+    probe = dict(found, native_loader="built" if native else
+                 f"not built ({native_loader.build_error()})",
+                 build_s=round(time.perf_counter() - t0, 2),
+                 decoder="native" if native else "cv2", png_writer="cv2")
+    print("data probe: " + json.dumps(probe))
+    if found["cv2"] == "absent":
+        fail("data: cv2 is absent, and the data phases write PNGs through it")
+    return probe
+
+
+def run_driver(name, argv, workdir):
+    """`plslam_tpu_torch.examples.<name>.main(argv)` in `workdir` (its
+    outputs land there), K1's count set to 0 just before and read just
+    after; prints the driver's output. Returns (rc, K1 launches, output)."""
+    import contextlib
+    import importlib
+    import io
+    import os
+    from plslam_tpu_torch.ops import gated_match
+    driver = importlib.import_module(f"plslam_tpu_torch.examples.{name}")
+    buf, cwd = io.StringIO(), os.getcwd()
+    os.chdir(workdir)
+    t0 = time.perf_counter()
+    gated_match.gated_hamming_best2.launches = 0
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = driver.main([str(a) for a in argv])
+    finally:
+        os.chdir(cwd)
+    launches = gated_match.gated_hamming_best2.launches
+    out = buf.getvalue()
+    for line in out.splitlines():
+        print(f"{name}: {line}")
+    print(f"{name}: rc {rc}, {time.perf_counter() - t0:.1f} s, K1 launches "
+          f"{launches}")
+    return rc, launches, out
+
+
+def tum_centers(path) -> dict:
+    """{timestamp: camera centre} of a TUM trajectory file."""
+    rows = [l.split() for l in Path(path).read_text().splitlines()
+            if l.strip() and not l.startswith("#")]
+    return {float(r[0]): np.array([float(v) for v in r[1:4]]) for r in rows}
+
+
+def kitti_centers(path) -> np.ndarray:
+    """(rows, 3) camera centres of a KITTI trajectory file (Twc 3x4)."""
+    rows = [l.split() for l in Path(path).read_text().splitlines()
+            if l.strip()]
+    if any(len(r) != 12 for r in rows):
+        fail(f"{path}: a row has not 12 values")
+    return np.array([[float(v) for v in r] for r in rows]).reshape(
+        -1, 3, 4)[:, :, 3]
+
+
+def ate_of(est_c, gt_c, with_scale: bool) -> float:
+    """ATE RMSE of camera centres after the port's `utils/metrics`
+    alignment (Sim3 with `with_scale`, else rigid)."""
+    from plslam_tpu_torch.utils import metrics
+    s, R, t = metrics.umeyama_align(est_c, gt_c, with_scale)
+    al = (s * (R @ est_c.T)).T + t
+    return float(np.sqrt(((al - gt_c) ** 2).sum(-1).mean()))
+
+
+def span_of(Ts) -> float:
+    c = centers(Ts)
+    return float(np.linalg.norm(c.max(0) - c.min(0)))
+
+
+def by_frame(centres: dict, ts_of_frame) -> tuple:
+    """(frame indices, centres) of the rows whose timestamp is a frame's."""
+    idx = [i for i, ts in enumerate(ts_of_frame) if ts in centres]
+    return idx, np.stack([centres[ts_of_frame[i]] for i in idx]) \
+        if idx else np.zeros((0, 3))
+
+
+def run_photo_phase(workdir, Ts, frames, launches) -> dict:
+    """12a: the head-to-head sequence through `examples.mono_tum`."""
+    from plslam_tpu_torch.datasets import textured
+    seq = workdir / "photo"
+    t0 = time.perf_counter()
+    tss = [i / 30.0 for i in range(PHOTO_FRAMES)]
+    textured.write_tum_sequence(str(seq), frames, tss)
+    np.save(seq / "gt_Tcw.npy", np.stack(Ts))
+    (seq / "settings.yaml").write_text(settings_yaml({}, 1000, 128))
+    print(f"photo: wrote {PHOTO_FRAMES} frames in "
+          f"{time.perf_counter() - t0:.1f} s")
+    from plslam_tpu_torch.datasets import tum
+    from plslam_tpu_torch.utils.native_loader import PrefetchLoader
+    t0 = time.perf_counter()
+    loader = PrefetchLoader(tum.load_rgb_index(str(seq))[1], queue_depth=8,
+                            n_threads=2)
+    n_dec = sum(1 for _ in loader)
+    loader.close()
+    print(f"photo: the loader alone decoded {n_dec} frames at "
+          f"{1e3 * (time.perf_counter() - t0) / n_dec:.3f} ms per frame "
+          f"(native {loader.native})")
+    t0 = time.perf_counter()
+    rc, n_k1, out = run_driver("mono_tum", [
+        seq / "settings.yaml", seq, "CameraTrajectory.txt"], seq)
+    wall = time.perf_counter() - t0
+    launches["mono_tum (photo)"] = n_k1
+    if rc != 0:
+        fail(f"photo: mono_tum returned {rc}")
+    stats = json.loads((seq / "mono_tum_stats.json").read_text())
+    ts_key = [round(t, 6) for t in tss]
+    rows = {round(k, 6): v for k, v in
+            tum_centers(seq / "CameraTrajectory.txt").items()}
+    kf_rows = {round(k, 6): v for k, v in
+               tum_centers(seq / "KeyFrameTrajectory.txt").items()}
+    gt_c, span = centers(Ts), span_of(Ts)
+    idx, est = by_frame(rows, ts_key)
+    kidx, kest = by_frame(kf_rows, ts_key)
+    ate = ate_of(est, gt_c[idx], True) if len(idx) >= 3 else float("nan")
+    kf_ate = ate_of(kest, gt_c[kidx], True) if len(kidx) >= 3 \
+        else float("nan")
+    j = PHOTO_JAX_CPU
+    print(f"photo: keyframe ATE {kf_ate:.5f} m over {len(kidx)} keyframes, "
+          f"all-frame ATE {ate:.5f} m over {len(idx)} poses (span "
+          f"{span:.3f} m); the JAX package on the CPU (scripts/ab_ours.py "
+          f"--cpu, same files) {j['kf_ate']} / {j['ate']} over "
+          f"{j['kf_poses']} / {j['poses']}; the C++ reference's keyframe "
+          f"ATE {PHOTO_REF_KF_ATE}")
+    print(f"photo: median tracking {1e3 * stats['median_track_s']:.2f} ms, "
+          f"mean {1e3 * stats['mean_track_s']:.2f} ms, "
+          f"{1.0 / stats['median_track_s']:.2f} frames/s at the median, "
+          f"end to end {stats['end_to_end_fps']:.2f} frames/s; "
+          f"{stats['n_kf']} keyframes, {stats['map_points']} map points, "
+          f"{stats['tracked_frames']} frames tracked after init, "
+          f"{stats['lost_after_init']} lost, loops {stats['n_loops']}, "
+          f"K1 launches {n_k1}, PrefetchLoader.native "
+          f"{stats['native_loader']}; {wall:.1f} s")
+    bad = []
+    if len(rows) < PHOTO_MIN_ROWS:
+        bad.append(f"{len(rows)} trajectory rows (< {PHOTO_MIN_ROWS})")
+    if stats["lost_after_init"]:
+        bad.append(f"{stats['lost_after_init']} LOST frames after init")
+    if not kf_ate < ATE_FRACTION * span:
+        bad.append(f"keyframe ATE {kf_ate:.5f} m is not below "
+                   f"{ATE_FRACTION:.0%} of the {span:.3f} m span")
+    if n_k1 < 3 * stats["tracked_frames"]:
+        bad.append(f"K1 launched {n_k1} times for "
+                   f"{stats['tracked_frames']} tracked frames")
+    if bad:
+        fail("photo: " + "; ".join(bad))
+    return dict(kf_ate=kf_ate, ate=ate, stats=stats)
+
+
+def run_driver_phases(workdir, keep, Ts_sys, frames_sys, launches):
+    """12b: rgbd_tum, stereo_kitti, mono_kitti and mono_euroc on sequences
+    written from frames the earlier phases rendered."""
+    from plslam_tpu_torch.utils.native_loader import write_png
+    u8 = lambda f: np.clip(f, 0, 255).astype(np.uint8)
+    results = {}
+
+    # rgbd_tum: the RGB-D phase's frames, depth in 1/5000 m
+    Ts_d, frames_d = keep["rgbd"]
+    seq = workdir / "rgbd"
+    (seq / "rgb").mkdir(parents=True)
+    (seq / "depth").mkdir()
+    lines = []
+    for i, (img, depth) in enumerate(frames_d):
+        ts = f"{i / 30.0:.6f}"
+        write_png(str(seq / "rgb" / f"{ts}.png"), u8(img))
+        write_png(str(seq / "depth" / f"{ts}.png"), np.clip(np.round(
+            depth * DEPTH_MAP_FACTOR), 0, 65535).astype(np.uint16))
+        lines.append(f"{ts} rgb/{ts}.png {ts} depth/{ts}.png\n")
+    (seq / "associations.txt").write_text("".join(lines))
+    (seq / "settings.yaml").write_text(settings_yaml(
+        {"DepthMapFactor": DEPTH_MAP_FACTOR}))
+    rc, n_k1, _ = run_driver("rgbd_tum", [
+        seq / "settings.yaml", seq, seq / "associations.txt",
+        "CameraTrajectory.txt"], seq)
+    launches["rgbd_tum"] = n_k1
+    rows = {round(k, 6): v for k, v in
+            tum_centers(seq / "CameraTrajectory.txt").items()}
+    idx, est = by_frame(rows, [round(i / 30.0, 6) for i in range(len(Ts_d))])
+    results["rgbd_tum"] = (rc, len(idx), len(Ts_d),
+                           ate_of(est, centers(Ts_d)[idx], False)
+                           if len(idx) >= 3 else float("nan"),
+                           DEPTH_BARS["rgbd"][1], "m (rigid)")
+
+    # stereo_kitti: the stereo phase's pairs as image_0 / image_1
+    Ts_s, frames_s = keep["stereo"]
+    seq = workdir / "stereo"
+    for cam in ("image_0", "image_1"):
+        (seq / cam).mkdir(parents=True)
+    for i, (left, right) in enumerate(frames_s):
+        write_png(str(seq / "image_0" / f"{i:06d}.png"), u8(left))
+        write_png(str(seq / "image_1" / f"{i:06d}.png"), u8(right))
+    (seq / "times.txt").write_text("".join(
+        f"{i / 30.0:.6e}\n" for i in range(len(frames_s))))
+    (seq / "settings.yaml").write_text(settings_yaml(
+        {"Camera.bf": FX * STEREO_BASELINE, "ThDepth": 35}))
+    rc, n_k1, _ = run_driver("stereo_kitti", [
+        seq / "settings.yaml", seq, "CameraTrajectory.txt"], seq)
+    launches["stereo_kitti"] = n_k1
+    est = kitti_centers(seq / "CameraTrajectory.txt")
+    results["stereo_kitti"] = (rc, len(est), len(Ts_s),
+                               ate_of(est, centers(Ts_s), False)
+                               if len(est) == len(Ts_s) else float("nan"),
+                               DEPTH_BARS["stereo"][1], "m (rigid)")
+
+    # mono_kitti and mono_euroc: the system sequence in their layouts
+    n = DATA_MONO_FRAMES
+    Ts_m, frames_m = Ts_sys[:n], frames_sys[:n]
+    span = span_of(Ts_m)
+    seq = workdir / "kitti"
+    (seq / "image_0").mkdir(parents=True)
+    for i, f in enumerate(frames_m):
+        write_png(str(seq / "image_0" / f"{i:06d}.png"), u8(f))
+    (seq / "times.txt").write_text("".join(f"{i / 30.0:.6e}\n"
+                                           for i in range(n)))
+    (seq / "settings.yaml").write_text(settings_yaml({}))
+    rc, n_k1, _ = run_driver("mono_kitti", [
+        seq / "settings.yaml", seq, "CameraTrajectory.txt"], seq)
+    launches["mono_kitti"] = n_k1
+    est = kitti_centers(seq / "CameraTrajectory.txt")
+    # the rows are the frames from the first one logged to the last
+    results["mono_kitti"] = (rc, len(est), n,
+                             ate_of(est, centers(Ts_m[n - len(est):]), True)
+                             if len(est) >= 3 else float("nan"),
+                             ATE_FRACTION * span, "m (Sim3, 5% of the span)")
+
+    seq = workdir / "euroc"
+    (seq / "data").mkdir(parents=True)
+    stamps = [EUROC_T0_NS + i * EUROC_DT_NS for i in range(n)]
+    for s, f in zip(stamps, frames_m):
+        write_png(str(seq / "data" / f"{s}.png"), u8(f))
+    (seq / "timestamps.txt").write_text("".join(f"{s}\n" for s in stamps))
+    (seq / "settings.yaml").write_text(settings_yaml({}))
+    rc, n_k1, _ = run_driver("mono_euroc", [
+        seq / "settings.yaml", seq / "data", seq / "timestamps.txt",
+        "KeyFrameTrajectory.txt"], seq)
+    launches["mono_euroc"] = n_k1
+    rows = {round(k, 6): v for k, v in
+            tum_centers(seq / "KeyFrameTrajectory.txt").items()}
+    idx, est = by_frame(rows, [round(s / 1e9, 6) for s in stamps])
+    results["mono_euroc"] = (rc, len(idx), n,
+                             ate_of(est, centers(Ts_m)[idx], True)
+                             if len(idx) >= 3 else float("nan"),
+                             ATE_FRACTION * span,
+                             "m (Sim3, keyframes, 5% of the span)")
+    bad = []
+    for name, (rc, got, total, ate, bar, what) in results.items():
+        print(f"{name}: {got} poses of {total} frames, ATE {ate:.4f} "
+              f"against < {bar:.4f} {what}")
+        if rc != 0 or not ate < bar or got < 3:
+            bad.append(f"{name}: rc {rc}, {got} poses, ATE {ate:.4f} "
+                       f"(bar {bar:.4f})")
+    if bad:
+        fail("drivers: " + "; ".join(bad))
+
+
+def check_vocabulary_on_card(frames, frames_r, Ts_r):
+    """12c: a k=10, L=3 vocabulary trained on host descriptors of the
+    photo sequence; words and BoW vectors on the card against the CPU port
+    and the greedy host descent, bit for bit; tests/test_orbvoc.py's
+    retrieval bar through the installed vocabulary on the card."""
+    from plslam_tpu_torch.ops import extract
+    from plslam_tpu_torch.vocab import bow, orbvoc
+    device = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    ext = extract.PointExtractor(extract.ExtractorConfig(), HEIGHT,
+                                 WIDTH).to(device)
+    descs = {}
+    for i in sorted(set(range(0, PHOTO_FRAMES, VOCAB_TRAIN_EVERY))
+                    | set(VOCAB_CHECK_FRAMES)):
+        f = ext(torch.from_numpy(frames[i]).to(device).to(torch.float32))
+        descs[i] = (f.desc.cpu().numpy(), f.valid.cpu().numpy())
+    voc = orbvoc.train([d[v] for i, (d, v) in descs.items()
+                        if i % VOCAB_TRAIN_EVERY == 0], k=10, L=3, seed=0)
+    print(f"vocab: trained k=10 L=3 on "
+          f"{len(range(0, PHOTO_FRAMES, VOCAB_TRAIN_EVERY))} frames: "
+          f"{voc.n_words} words in {time.perf_counter() - t0:.1f} s")
+    on_cpu = {i: (voc.words_of(torch.from_numpy(descs[i][0])),
+                  voc.bow_vector(*map(torch.from_numpy, descs[i])))
+              for i in VOCAB_CHECK_FRAMES}
+    voc.to(device)
+    bad = []
+    for i in VOCAB_CHECK_FRAMES:
+        d, v = descs[i]
+        w_cpu, b_cpu = on_cpu[i]
+        w_card = voc.words_of(torch.from_numpy(d).to(device)).cpu()
+        w_np = orbvoc.words_of_np(voc, d)
+        b_card = voc.bow_vector(torch.from_numpy(d).to(device),
+                                torch.from_numpy(v).to(device)).cpu()
+        n_w = int((w_card != w_cpu).sum())
+        n_np = int((w_card.numpy() != w_np).sum())
+        n_b = int((b_card != b_cpu).sum())
+        print(f"vocab: frame {i}: words card vs CPU {n_w} and vs host "
+              f"descent {n_np} of {len(d)} differ; BoW entries differing "
+              f"{n_b} of {voc.n_words} (max |diff| "
+              f"{float((b_card - b_cpu).abs().max()):.3g})")
+        if n_w or n_np or n_b:
+            bad.append(f"frame {i}: {n_w} / {n_np} words, {n_b} BoW entries")
+
+    # tests/test_orbvoc.py's retrieval bar through the installed tree
+    cfg_e = extract.ExtractorConfig(n_features=512, n_levels=3)
+    ext_r = extract.PointExtractor(cfg_e, HEIGHT, WIDTH).to(device)
+    feats = [ext_r(torch.from_numpy(f).to(device)) for f in frames_r]
+    host = [(f.desc.cpu().numpy(), f.valid.cpu().numpy()) for f in feats]
+    voc_r = orbvoc.train([d[v] for d, v in host][::3], k=8, L=3,
+                         seed=0).to(device)
+    bow.set_vocabulary(voc_r)
+    try:
+        bows = torch.stack([bow.bow_vector(f.desc, f.valid)
+                            for f in feats]).cpu().numpy()
+    finally:
+        bow.set_vocabulary(None)
+    C, Z = centers(Ts_r), np.stack([T[:3, :3].T @ np.array([0, 0, 1.0])
+                                    for T in Ts_r])
+    relevant = ((np.arccos(np.clip(Z @ Z.T, -1, 1)) < 0.25)
+                & (np.linalg.norm(C[:, None] - C[None, :], axis=-1) < 0.6))
+    hits = total = 0
+    for i in range(RETRIEVAL_FRAMES):
+        cand = [j for j in range(RETRIEVAL_FRAMES) if abs(i - j) > 4]
+        if not any(relevant[i, j] for j in cand):
+            continue
+        sc = np.minimum(bows[i][None, :], bows[cand]).sum(-1)
+        total += 1
+        hits += bool(relevant[i, cand[int(np.argmax(sc))]])
+    p1 = hits / max(total, 1)
+    print(f"vocab: retrieval through the installed tree ({voc_r.n_words} "
+          f"words) on the card: precision@1 {p1:.3f} over {total} queries "
+          f"(bar {RETRIEVAL_P1}); uninstalled, N_WORDS {bow.N_WORDS}")
+    if total < 8 or p1 < RETRIEVAL_P1:
+        bad.append(f"retrieval precision@1 {p1:.3f} over {total} queries")
+    if bad:
+        fail("vocab: " + "; ".join(bad))
+
+
+def check_subpixel_on_card(frames):
+    """12d: extraction with subpixel refinement on the card against the
+    port on the CPU, three photo frames: octaves, validity and descriptor
+    bits equal, refined keypoints within SUBPIX_TOL_PX."""
+    from plslam_tpu_torch.ops import extract
+    cfg = extract.ExtractorConfig(subpixel=True)
+    ext_card = extract.PointExtractor(cfg, HEIGHT, WIDTH).to("cuda")
+    ext_cpu = extract.PointExtractor(cfg, HEIGHT, WIDTH)
+    bad = []
+    for i in SUBPIX_FRAMES:
+        img = torch.from_numpy(frames[i]).to(torch.float32)
+        a = ext_card(img.to("cuda"))
+        b = ext_cpu(img)
+        a = {k: v.cpu() for k, v in a._asdict().items()}
+        b = b._asdict()
+        n_int = {k: int((a[k] != b[k]).any(-1).sum() if a[k].ndim > 1
+                        else (a[k] != b[k]).sum())
+                 for k in ("octave", "valid", "desc")}
+        gap = float((a["uv"] - b["uv"]).abs().max())
+        moved = float((b["uv"] != b["uv"].round()).any(-1)[b["valid"]]
+                      .float().mean())
+        print(f"subpixel: frame {i}: slots differing {n_int}, refined uv "
+              f"within {gap:.3g} px (tolerance {SUBPIX_TOL_PX}), "
+              f"{100 * moved:.1f}% of valid keypoints off the pixel grid")
+        if any(n_int.values()) or not gap <= SUBPIX_TOL_PX:
+            bad.append(f"frame {i}: {n_int}, uv gap {gap:.3g}")
+    if bad:
+        fail("subpixel: " + "; ".join(bad))
+
+
+def _nulls(x, path="") -> list:
+    if x is None:
+        return [path or "(line)"]
+    if isinstance(x, dict):
+        return [p for k, v in x.items() for p in _nulls(v, f"{path}.{k}")]
+    if isinstance(x, list):
+        return [p for i, v in enumerate(x) for p in _nulls(v, f"{path}[{i}]")]
+    return []
+
+
+def run_bench_phase():
+    """13: `python -m plslam_tpu_torch.bench` once, as a subprocess: exit
+    0, one JSON line with no null field and `degraded` false."""
+    import os
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    try:
+        proc = subprocess.run([sys.executable, "-m", "plslam_tpu_torch.bench"],
+                              cwd=ROOT, env=env, capture_output=True,
+                              text=True, timeout=BENCH_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        fail(f"bench: no result within {BENCH_TIMEOUT_S} s")
+    wall = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode != 0 or not lines:
+        fail(f"bench: exit {proc.returncode}\n{proc.stderr[-3000:]}")
+    try:
+        res = json.loads(lines[-1])
+    except json.JSONDecodeError:
+        fail(f"bench: the last line is not JSON: {lines[-1][:300]}")
+    print(f"bench: {lines[-1]}")
+    print(f"bench: {wall:.1f} s")
+    nulls = _nulls(res)
+    if nulls or res.get("extra", {}).get("degraded") is not False:
+        fail(f"bench: null fields {nulls}, degraded "
+             f"{res.get('extra', {}).get('degraded')}")
+
+
+def run_data_phases(launches, keep, Ts_sys, frames_sys):
+    """The data path (items 12a-12d) and the bench (item 13)."""
+    import tempfile
+    t_phase = time.perf_counter()
+    data_probe()
+    t0 = time.perf_counter()
+    Ts, frames, Ts_r, frames_r = render_photo_sequences()
+    print(f"rendered the {PHOTO_FRAMES}-frame photo sequence and the "
+          f"{RETRIEVAL_FRAMES}-frame retrieval sequence in "
+          f"{time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory(prefix="plslam_data_") as tmp:
+        work = Path(tmp)
+        run_photo_phase(work, Ts, frames, launches)
+        t0 = time.perf_counter()
+        run_driver_phases(work, keep, Ts_sys, frames_sys, launches)
+        print(f"drivers: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    check_vocabulary_on_card(frames, frames_r, Ts_r)
+    print(f"vocab: {time.perf_counter() - t0:.1f} s")
+    check_subpixel_on_card(frames)
+    print(f"data phases: {time.perf_counter() - t_phase:.1f} s")
+    run_bench_phase()
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1960,8 +2530,10 @@ def main() -> int:
           f"from one state: poses within {c['T']:.2e}, decisions equal; "
           f"{c['captures']} captures; phase "
           f"{time.perf_counter() - t0:.1f} s")
-    check_later_phases(gm, device, timing, launches)
+    keep = {}
+    check_later_phases(gm, device, timing, launches, keep)
     run_multistream_phase(gm, launches)
+    run_data_phases(launches, keep, Ts_sys, frames_sys)
     print(f"K1 launches: " + ", ".join(f"{k} {v}" for k, v in
                                        launches.items()))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
@@ -2046,10 +2618,11 @@ def check_real_calls(gm, out, timing, phase=None):
                                    f"gated={gated}", a, gated)
 
 
-def check_later_phases(gm, device, timing, launches):
+def check_later_phases(gm, device, timing, launches, keep):
     """The lines, relocalization, depth and loop phases, graphed, and K1
     on the first relocalization attempt's and the first Sim3 stage's real
-    calls; adds each run's K1 launches to `launches`."""
+    calls; adds each run's K1 launches to `launches` and the depth phases'
+    (poses, frames) to `keep` under "rgbd" and "stereo"."""
     new_calls = []
     # (a) the defaults with lines on, (b) the lines-help widths with
     # lines on and off, (c) detect_lines on the card vs the CPU
@@ -2113,6 +2686,7 @@ def check_later_phases(gm, device, timing, launches):
               f"{time.perf_counter() - t0:.1f} s")
         check_depth(kind, Ts_d, d_out)
         launches[kind] = d_out["launches"]
+        keep[kind] = (Ts_d, frames_d)
         if kind == "stereo":
             check_stereo_depth(d_out["slam"],
                                frames_d[STEREO_DEPTH_FRAME], dep[0])

@@ -214,6 +214,11 @@ def render(scene: Scene, T_cw: np.ndarray, bg: float = 24.0,
     return out
 
 
+def render_sequence(scene: Scene, Ts: np.ndarray) -> np.ndarray:
+    """(N, H, W) float32 frames along the (N, 4, 4) world->camera poses."""
+    return np.stack([render(scene, T) for T in Ts])
+
+
 def ate_rmse(T_est: np.ndarray, T_gt: np.ndarray, align_scale: bool = True):
     """Absolute trajectory error after Horn (Sim3 with `align_scale`, else
     SE3) alignment of the camera centers, TUM protocol. T_est / T_gt:

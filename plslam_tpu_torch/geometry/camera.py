@@ -92,3 +92,20 @@ def undistort_pixels(cam: Camera, uv):
     xu = undistort_normalized(cam, xn)
     return torch.stack([cam.fx * xu[..., 0] + cam.cx,
                         cam.fy * xu[..., 1] + cam.cy], dim=-1)
+
+
+def undistorted_bounds(cam: Camera, device=None):
+    """Undistorted image bounds (minx, maxx, miny, maxy) as 0-d float32
+    tensors, cf `Frame::ComputeImageBounds` (`src/Frame.cc:935-963`)."""
+    w, h = float(cam.width), float(cam.height)
+    corners = torch.tensor([[0.0, 0.0], [w, 0.0], [0.0, h], [w, h]],
+                           dtype=torch.float32, device=device)
+    cu = undistort_pixels(cam, corners)
+    return (torch.minimum(cu[0, 0], cu[2, 0]), torch.maximum(cu[1, 0], cu[3, 0]),
+            torch.minimum(cu[0, 1], cu[1, 1]), torch.maximum(cu[2, 1], cu[3, 1]))
+
+
+def in_image(cam: Camera, uv, margin: float = 0.0):
+    """Mask of pixels inside the (nominal) image rectangle."""
+    return ((uv[..., 0] >= margin) & (uv[..., 0] < cam.width - margin)
+            & (uv[..., 1] >= margin) & (uv[..., 1] < cam.height - margin))

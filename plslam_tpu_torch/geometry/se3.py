@@ -28,6 +28,11 @@ def hat(w):
     ], dim=-2)
 
 
+def vee(W):
+    """Inverse of hat: (...,3,3) -> (...,3)."""
+    return torch.stack([W[..., 2, 1], W[..., 0, 2], W[..., 1, 0]], dim=-1)
+
+
 def _eye3(w):
     return torch.eye(3, dtype=w.dtype, device=w.device).expand(
         w.shape[:-1] + (3, 3))
@@ -159,3 +164,17 @@ def rot_to_quat(R):
     q = torch.gather(cand, -2, idx[..., None, None].expand(idx.shape + (1, 4)))
     q = q[..., 0, :]
     return q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+
+
+def quat_to_rot(q):
+    """(...,4) [w,x,y,z] -> (...,3,3)."""
+    q = q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+    w, x, y, z = q.unbind(-1)
+    return torch.stack([
+        torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z),
+                     2 * (x * z + w * y)], dim=-1),
+        torch.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z),
+                     2 * (y * z - w * x)], dim=-1),
+        torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x),
+                     1 - 2 * (x * x + y * y)], dim=-1),
+    ], dim=-2)

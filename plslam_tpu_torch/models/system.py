@@ -46,8 +46,7 @@ loop detection reads its candidates one keyframe late from pinned memory,
 and a consistent candidate's Sim3 stage and correction read their counts
 and the covisibility. A frame given as a host array goes to the device
 through pinned memory without waiting; tracking, global-BA rounds and the
-keyframe chain never wait. Options that need modules not ported yet raise
-`NotImplementedError` naming their ROADMAP item.
+keyframe chain never wait.
 """
 from __future__ import annotations
 
@@ -104,6 +103,21 @@ class SLAMConfig:
     max_ln: int = 1024
     n_lf: int = 256
     grow_map: bool = True
+    # growth ceilings, reckoned for an 80 GB card from
+    # `mapstate/state.field_specs`, with K / P / L keyframes / points /
+    # lines, N = 1024 keypoints, NL = 256 line slots, W = 4096 BoW words:
+    # - MapState = K (69 + 281 N + 289 NL + 4 W) + 565 P + 301 L + 12 B,
+    #   1,588,523,020 B (1.48 GiB) at 4096 x 65536 x 8192;
+    # - the last growth event holds the map at half the ceilings and the
+    #   new one together (`mapstate.grow`): 2,382,784,536 B (2.22 GiB);
+    # - one dense (N, P) float32 / int32 matrix against the whole map (the
+    #   Sim3 stage's group count, `fuse_duplicate_points`, `loop_fuse`):
+    #   4 N P = 268,435,456 B (0.25 GiB); K1 builds none;
+    # - the (K, P) bool observer incidence (`observers_of_points`): K P =
+    #   268,435,456 B (0.25 GiB).
+    # The global BA is capped at 128 x 16384 (`System._gba_kwargs`). Beside
+    # the growth transient the card has room for ~290 such matrices, so the
+    # ceilings stay the JAX package's.
     hard_max_kf: int = 4096
     hard_max_pt: int = 65536
     hard_max_ln: int = 8192
@@ -196,17 +210,6 @@ NOT_INITIALIZED = "NOT_INITIALIZED"
 OK = "OK"
 LOST = "LOST"
 
-# options whose modules are not ported yet: (test, what, ROADMAP item)
-_UNPORTED = (
-    (lambda c: c.subpixel, "subpixel (keypoint refinement)", 16),
-)
-
-
-def _not_ported(what: str, item: int):
-    return NotImplementedError(f"{what} is not ported to plslam_tpu_torch "
-                               f"yet: ROADMAP Queue 1 item {item}")
-
-
 class System:
     """Point-and-line SLAM on one device, `cuda` unless `device` names
     another (the CPU runs the kernels' plain versions). Public surface as
@@ -222,9 +225,6 @@ class System:
     def __init__(self, config: Optional[SLAMConfig] = None, device=None,
                  use_graphs: bool = True):
         config = SLAMConfig() if config is None else config
-        for test, what, item in _UNPORTED:
-            if test(config):
-                raise _not_ported(what, item)
         self.cfg = config
         self.device = torch.device("cuda" if device is None else device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -238,7 +238,8 @@ class System:
         self.ext_cfg = extract.ExtractorConfig(
             n_features=c.n_features, n_levels=c.n_levels,
             scale=c.scale_factor, th_fast_high=c.th_fast_high,
-            th_fast_low=c.th_fast_low, level_map=c.level_map,
+            th_fast_low=c.th_fast_low, subpixel=c.subpixel,
+            level_map=c.level_map,
             sel_order=c.sel_order, desc_pattern=c.desc_pattern,
             sel_cap=c.sel_cap)
         self.map_cfg = mstate.MapConfig(

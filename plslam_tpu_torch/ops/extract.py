@@ -37,6 +37,11 @@ class ExtractorConfig(NamedTuple):
     th_fast_low: float = 7.0
     margin: int = 20          # reference EDGE_THRESHOLD=19 (+1 for rotation)
     cell: int = 32            # selection grid cell in pixels
+    subpixel: bool = False    # quadratic peak refinement of keypoint
+                              # locations on the pre-NMS score map
+                              # (descriptors still sample the integer
+                              # location); off, as in the JAX package,
+                              # which measured it worse (refine_subpixel)
     level_map: int = 1        # level -> base coords: 0 = uv * scale**l,
                               # 1 = uv * (dim0/dim_l) per axis,
                               # 2 = (uv + 0.5) * (dim0/dim_l) - 0.5
@@ -106,13 +111,20 @@ class PointExtractor(nn.Module):
             if n_l == 0:
                 continue
             score = fast.fast_dual_threshold(im_l, cfg.th_fast_high,
-                                             cfg.th_fast_low, cfg.margin)
+                                             cfg.th_fast_low, cfg.margin,
+                                             return_raw=cfg.subpixel)
+            if cfg.subpixel:
+                score, raw = score
             uv, resp, valid = select.select_grid_topk(
                 score, n_l, cell=cfg.cell, k_per_cell=cfg.sel_cap,
                 order=cfg.sel_order)
             ang = orb.ic_angle(im_l, uv)
             bits = orb.steered_descriptor(pyramid.blur(im_l, self.blur_taps),
                                           uv, ang, self.pattern_offsets)
+            if cfg.subpixel:
+                # geometry gets the refined location; the angle and the
+                # descriptor above sampled the integer one
+                uv = refine_subpixel(raw, uv)
             if cfg.level_map == 0:
                 uv0 = uv * (cfg.scale ** l)
             else:
@@ -131,6 +143,31 @@ class PointExtractor(nn.Module):
                              angle=torch.cat(ang_all),
                              desc=torch.cat(desc_all),
                              valid=torch.cat(valid_all))
+
+
+def refine_subpixel(score, uv):
+    """Quadratic sub-pixel refinement of integer keypoints (N, 2) on an
+    (H, W) score map: per axis the offset -d1 / d2 of the parabola through
+    the keypoint and its two neighbours, clipped to +-0.5 and applied only
+    where the parabola is concave. Off by default: the JAX package measured
+    it worse (the FAST ring score is not a quadratic around the corner)."""
+    h, w = score.shape
+    x = uv[:, 0].to(torch.int32).clamp(1, w - 2).long()
+    y = uv[:, 1].to(torch.int32).clamp(1, h - 2).long()
+
+    def at(dy, dx):
+        return score[y + dy, x + dx]
+
+    s0 = at(0, 0)
+    dxs = 0.5 * (at(0, 1) - at(0, -1))
+    dys = 0.5 * (at(1, 0) - at(-1, 0))
+    dxx = at(0, 1) - 2 * s0 + at(0, -1)
+    dyy = at(1, 0) - 2 * s0 + at(-1, 0)
+    ox = (-dxs / torch.where(dxx.abs() < 1e-6, 1e-6, dxx)).clamp(-0.5, 0.5)
+    oy = (-dys / torch.where(dyy.abs() < 1e-6, 1e-6, dyy)).clamp(-0.5, 0.5)
+    ox = torch.where(dxx < 0, ox, 0.0)
+    oy = torch.where(dyy < 0, oy, 0.0)
+    return uv + torch.stack([ox, oy], -1)
 
 
 def extract_points(img, cfg: ExtractorConfig = ExtractorConfig()) -> PointFeatures:

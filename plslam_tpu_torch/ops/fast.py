@@ -33,6 +33,30 @@ def _arc_ok(mask):
     return (r8 & mask.roll(-8, 0)).any(0)
 
 
+def _ring_diff(img):
+    """(16, H, W): ring pixel minus centre, ring[i][y, x] = img[y+dy, x+dx]."""
+    ring = torch.stack([img.roll((-int(dy), -int(dx)), (0, 1))
+                        for dy, dx in RING_OFFSETS])
+    return ring - img[None]
+
+
+def _score(diff, threshold: float):
+    """The corner score of a ring difference stack (`fast_score_map`)."""
+    bright = diff > threshold
+    dark = diff < -threshold
+    sb = torch.where(bright, diff - threshold, 0.0).sum(0)
+    sd = torch.where(dark, -diff - threshold, 0.0).sum(0)
+    return torch.maximum(torch.where(_arc_ok(bright), sb, 0.0),
+                         torch.where(_arc_ok(dark), sd, 0.0))
+
+
+def fast_score_map(img, threshold: float):
+    """Dense FAST-9/16 corner score, (H, W) float32 -> (H, W) float32: the
+    sum over ring pixels of |I_ring - I_c| - t for the dominant polarity,
+    zero where the contiguous-arc test fails."""
+    return _score(_ring_diff(img), threshold)
+
+
 def nms3(score):
     """3x3 non-maximum suppression (keeps score >= window max)."""
     m = F.max_pool2d(score[None, None], 3, stride=1, padding=1)[0, 0]
@@ -47,23 +71,19 @@ def border_mask(h: int, w: int, margin: int, device=None):
 
 
 def fast_dual_threshold(img, th_high: float, th_low: float, margin: int,
-                        high_bonus: float = 1e6):
+                        high_bonus: float = 1e6, return_raw: bool = False):
     """NMS'd corner score preferring high-threshold corners: the low
     threshold's score, plus `high_bonus` where the high threshold's arc test
-    also passes (the data-parallel form of the 20 -> 7 per-cell fallback)."""
-    ring = torch.stack([img.roll((-int(dy), -int(dx)), (0, 1))
-                        for dy, dx in RING_OFFSETS])
-    diff = ring - img[None]
-
-    bright_lo = diff > th_low
-    dark_lo = diff < -th_low
-    sb = torch.where(bright_lo, diff - th_low, 0.0).sum(0)
-    sd = torch.where(dark_lo, -diff - th_low, 0.0).sum(0)
-    s_low = torch.maximum(torch.where(_arc_ok(bright_lo), sb, 0.0),
-                          torch.where(_arc_ok(dark_lo), sd, 0.0))
-
+    also passes (the data-parallel form of the 20 -> 7 per-cell fallback).
+    With `return_raw`, also the pre-NMS low-threshold score map (sub-pixel
+    refinement needs the neighbours NMS zeroes)."""
+    diff = _ring_diff(img)
+    s_low = _score(diff, th_low)
     hi = _arc_ok(diff > th_high) | _arc_ok(diff < -th_high)
     score = torch.where(hi & (s_low > 0.0), s_low + high_bonus, s_low)
     score = nms3(score)
     h, w = img.shape
-    return torch.where(border_mask(h, w, margin, img.device), score, 0.0)
+    out = torch.where(border_mask(h, w, margin, img.device), score, 0.0)
+    if return_raw:
+        return out, s_low
+    return out

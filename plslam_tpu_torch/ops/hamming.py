@@ -52,6 +52,20 @@ def mutual_best(dist, mask):
     return best_idx, best, second, mutual
 
 
+def hamming_nn_match(bits_q, bits_d, mask=None, max_dist: int = 50,
+                     nn_ratio: float = 1.0):
+    """One-call NN matcher with distance + ratio gates: (idx (N,), ok (N,)
+    bool, best (N,)) (`src/ORBmatcher.cc:37-39`'s per-use constants live
+    at the call sites)."""
+    dist = distance_matrix(bits_q, bits_d)
+    if mask is None:
+        mask = torch.ones(dist.shape, dtype=torch.bool, device=dist.device)
+    idx, best, second = masked_best2(dist, mask)
+    ok = (best <= max_dist) & (best.to(torch.float32)
+                               <= nn_ratio * second.to(torch.float32))
+    return idx, ok, best
+
+
 def nanmedian(x):
     """`torch.nanquantile(x, 0.5)` of a 1-d float32 x, step for step (sort
     with NaN last, rank 0.5 x (count - 1) in float32, lerp between the two

@@ -29,9 +29,9 @@ N_ANGLE_BINS = 30        # 12 deg bins (rBRIEF quantization)
 TILE = 8
 PATCH40 = 40
 
+# the JAX package's `learned_pattern.npy`, copied byte for byte
 LEARNED_PATTERN_PATH = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-    "plslam_tpu", "ops", "learned_pattern.npy")
+    os.path.dirname(os.path.abspath(__file__)), "learned_pattern.npy")
 
 
 def make_gauss_pattern(seed: int = 20260816) -> np.ndarray:
@@ -45,8 +45,8 @@ def make_gauss_pattern(seed: int = 20260816) -> np.ndarray:
 
 
 def load_pattern(name: str) -> np.ndarray:
-    """(256, 4) int32 test pattern: "gauss", or "learned" read from the JAX
-    package's `learned_pattern.npy` (raises if that file is missing)."""
+    """(256, 4) int32 test pattern: "gauss", or "learned" read from this
+    package's `ops/learned_pattern.npy` (raises if that file is missing)."""
     if name == "gauss":
         return make_gauss_pattern()
     if name == "learned":
@@ -137,3 +137,18 @@ def steered_descriptor(img_blur, uv, angle, offsets):
     xx = x0[:, None, None] + HALF_PATCH + off[..., 1]
     v = p.reshape(-1)[yy * wp + xx]                       # (K, 256, 2)
     return (v[..., 1] - v[..., 0] > 0).to(torch.uint8)
+
+
+def pack_bits(bits):
+    """(..., 256) {0,1} -> (..., 32) uint8 packed descriptor (bit j of byte
+    i is bit 8 i + j)."""
+    b = bits.reshape(bits.shape[:-1] + (32, 8)).to(torch.int32)
+    weights = 1 << torch.arange(8, dtype=torch.int32, device=bits.device)
+    return (b * weights).sum(-1).to(torch.uint8)
+
+
+def unpack_bits(packed):
+    """(..., 32) uint8 -> (..., 256) {0,1} uint8."""
+    shifts = torch.arange(8, dtype=torch.uint8, device=packed.device)
+    bits = (packed[..., None] >> shifts) & 1
+    return bits.reshape(packed.shape[:-1] + (256,)).to(torch.uint8)

@@ -1,11 +1,13 @@
-"""Bag-of-binary-words signatures (LSH word assignment) and scoring.
+"""Bag-of-binary-words signatures and scoring.
 
-Port of `plslam_tpu/vocab/bow.py` without its optional DBoW2 vocabulary
-(`orbvoc.py`, not ported): a word is 12 fixed bit positions of the 256-bit
-descriptor, drawn from the same numpy seed as the JAX package, and a frame
-signature is the L1-normalized word histogram. Keyframe insertion stores it
-in `MapState.kf_bow`; relocalization and loop detection score against it
-with the DBoW2 L1 score.
+Port of `plslam_tpu/vocab/bow.py`. By default a word is 12 fixed bit
+positions of the 256-bit descriptor (LSH), drawn from the same numpy seed as
+the JAX package, and a frame signature is the L1-normalized word histogram.
+`set_vocabulary` installs a DBoW2 tree vocabulary (`orbvoc.OrbVocabulary`)
+instead: words then come from its tree descent and the histogram from its
+idf weights. Keyframe insertion stores the signature in `MapState.kf_bow`;
+relocalization and loop detection score against it with the DBoW2 L1
+score.
 """
 from __future__ import annotations
 
@@ -26,6 +28,20 @@ def _make_bit_selection(seed: int = 271828) -> np.ndarray:
 BIT_SEL = _make_bit_selection()
 
 
+# Optional drop-in vocabulary (DBoW2 ORBvoc text format, `orbvoc.py`):
+# when set, word assignment and weighting go through its tree instead of the
+# LSH words. Set it BEFORE any MapState is allocated (`kf_bow` is N_WORDS
+# wide at allocation).
+_VOCAB = None
+
+
+def set_vocabulary(voc) -> None:
+    """Install an `orbvoc.OrbVocabulary` (or None to restore LSH words)."""
+    global _VOCAB, N_WORDS
+    _VOCAB = voc
+    N_WORDS = voc.n_words if voc is not None else (1 << N_WORDS_BITS)
+
+
 @functools.lru_cache(maxsize=None)
 def _bit_sel(device: torch.device):
     # copied to each device once: a copy from host memory waits for the
@@ -34,7 +50,10 @@ def _bit_sel(device: torch.device):
 
 
 def words_of(desc_bits):
-    """(N, 256) {0,1} -> (N,) int32 word ids."""
+    """(N, 256) {0,1} -> (N,) int32 word ids (LSH, or the installed
+    vocabulary's tree)."""
+    if _VOCAB is not None:
+        return _VOCAB.words_of(desc_bits)
     sel = _bit_sel(desc_bits.device)
     weights = 1 << torch.arange(N_WORDS_BITS, dtype=torch.int32,
                                 device=desc_bits.device)
@@ -43,7 +62,10 @@ def words_of(desc_bits):
 
 
 def bow_vector(desc_bits, valid):
-    """(N,256),(N,) -> (N_WORDS,) L1-normalized word histogram."""
+    """(N,256),(N,) -> (N_WORDS,) L1-normalized word histogram (tf, or
+    the installed vocabulary's tf-idf)."""
+    if _VOCAB is not None:
+        return _VOCAB.bow_vector(desc_bits, valid)
     w = words_of(desc_bits).long()
     hist = torch.zeros(N_WORDS, dtype=torch.float32, device=desc_bits.device)
     hist = hist.index_add(0, w, valid.to(torch.float32))

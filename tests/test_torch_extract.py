@@ -147,3 +147,45 @@ def test_extract_points_functional_and_shape_check(frame, features):
     np.testing.assert_array_equal(out.desc.numpy(), ft["desc"])
     with pytest.raises(ValueError):
         text.PointExtractor(TCFG, H, W)(torch.zeros(H + 1, W))
+
+
+# subpixel refinement: on level 0 the pre-NMS score map is bit-equal, so the
+# refined keypoints agree to float32 rounding of the parabola's offset
+SUBPIX_TOL_PX = 1e-5
+
+
+def test_refine_subpixel_level0(levels):
+    im = levels[0]
+    sj, rj = jax.jit(lambda x: jfast.fast_dual_threshold(
+        x, 20.0, 7.0, 20, return_raw=True))(jnp.asarray(im))
+    st, rt = tfast.fast_dual_threshold(torch.from_numpy(im), 20.0, 7.0, 20,
+                                       return_raw=True)
+    np.testing.assert_array_equal(st.numpy(), np.asarray(sj))
+    np.testing.assert_array_equal(rt.numpy(), np.asarray(rj))
+    uv, _, valid = tsel.select_grid_topk(st, text.level_budgets(TCFG)[0])
+    # the image edge too, where the neighbours are clamped
+    uv = torch.cat([uv, torch.tensor([[0.0, 0.0], [W - 1.0, H - 1.0]])])
+    rj_uv = np.asarray(jax.jit(jext.refine_subpixel)(rj, jnp.asarray(uv.numpy())))
+    rt_uv = text.refine_subpixel(rt, uv).numpy()
+    moved = np.abs(rt_uv - uv.numpy()).max(1) > 0
+    assert moved[:-2][valid.numpy()].mean() > 0.5   # the refinement acts
+    np.testing.assert_allclose(rt_uv, rj_uv, atol=SUBPIX_TOL_PX, rtol=0)
+
+
+def test_extract_points_subpixel(frame):
+    cj, ct = JCFG._replace(subpixel=True), TCFG._replace(subpixel=True)
+    fj = jax.jit(lambda im: jext.extract_points(im, cj))(jnp.asarray(frame))
+    ft = text.PointExtractor(ct, H, W)(torch.from_numpy(frame))
+    fj = {k: np.asarray(v) for k, v in fj._asdict().items()}
+    ft = {k: v.numpy() for k, v in ft._asdict().items()}
+    # keypoints (integer parts, octaves, validity) as test_extract_points;
+    # refined uv within SUBPIX_TOL_PX on level 0 and within the levels'
+    # resize tolerance (1e-3) elsewhere
+    same = ((np.abs(ft["uv"] - fj["uv"]).max(1) <= 1e-3)
+            & (ft["octave"] == fj["octave"]) & (ft["valid"] == fj["valid"]))
+    l0 = fj["octave"] == 0
+    assert same[l0].all() and same.mean() >= 0.99
+    np.testing.assert_allclose(ft["uv"][l0], fj["uv"][l0], atol=SUBPIX_TOL_PX,
+                               rtol=0)
+    np.testing.assert_array_equal(ft["desc"][l0], fj["desc"][l0])
+    assert (np.round(ft["uv"]) != ft["uv"]).any(1)[ft["valid"]].mean() > 0.5

@@ -14,9 +14,9 @@ alignment below 5% of the span (the JAX package's gate); the two
 Sim3-aligned trajectories within 1% of the span of each other; with growth
 on, the same growth events. Here: `SLAMConfig` and `from_yaml` as the JAX
 package's, a line mask read from `mask_path` as the JAX package reads it,
-relocalization of a LOST frame, the defaults' constructor, and
-`NotImplementedError` for every option not ported yet (the dispatch paths:
-tests/test_torch_dispatch.py)."""
+relocalization of a LOST frame, the defaults' constructor, `subpixel`,
+and the map's bytes at the growth ceilings, as `SLAMConfig`'s comment
+reckons them (the dispatch paths: tests/test_torch_dispatch.py)."""
 import dataclasses
 from pathlib import Path
 
@@ -129,11 +129,46 @@ def test_mask_path_reaches_detect_lines(tmp_path):
     assert (lf.uv_b.numpy()[v, 0] > 312).all()
 
 
-@pytest.mark.parametrize("option,value,item", [("subpixel", True, 16)])
-def test_unported_options_raise(option, value, item):
-    cfg = tsys.SLAMConfig(**{**SMALL, option: value})
-    with pytest.raises(NotImplementedError, match=f"item {item}$"):
-        tsys.System(cfg, device="cpu")
+def test_subpixel_system_tracks_two_frames():
+    """`subpixel` (once an unported option that raised) reaches the
+    extractor: keypoints come off the pixel grid, and the System tracks."""
+    t = tsys.System(tsys.SLAMConfig(**{**SMALL, "subpixel": True}),
+                    device="cpu")
+    assert t.ext_cfg.subpixel
+    _, frames = _frames(2)
+    f, _ = t._extract(frames[0])
+    uv = f.uv.numpy()[f.valid.numpy()]
+    assert (uv != np.round(uv)).any(1).mean() > 0.5
+    for i, img in enumerate(frames):
+        t.track_monocular(img, i / 30.0)
+    assert t.frame_id == 1 and t.state in (tsys.OK, tsys.NOT_INITIALIZED)
+
+
+def test_growth_ceiling_bytes():
+    """The byte counts of `SLAMConfig`'s comment on `hard_max_kf / pt / ln`,
+    reckoned from `mapstate/state.field_specs`: the map at the ceilings, the
+    last growth event (the map at half the ceilings beside it), one (N, P)
+    float32 matrix and the (K, P) bool incidence; all of them together
+    well inside an 80 GB card."""
+    import math
+    from plslam_tpu_torch.mapstate import state as mstate
+    c = tsys.SLAMConfig()
+
+    def map_bytes(kf, pt, ln):
+        cfg = mstate.MapConfig(max_kf=kf, max_pt=pt, max_ln=ln,
+                               n_kp=c.n_features, n_lf=c.n_lf)
+        return sum(math.prod(shape) * torch.empty((), dtype=dt).element_size()
+                   for shape, dt in mstate.field_specs(cfg).values())
+
+    K, P, L, N = c.hard_max_kf, c.hard_max_pt, c.hard_max_ln, c.n_features
+    top = map_bytes(K, P, L)
+    grow = map_bytes(K // 2, P // 2, L // 2) + top
+    assert (K, P, L, N, c.n_lf) == (4096, 65536, 8192, 1024, 256)
+    assert top == K * (69 + 281 * N + 289 * c.n_lf + 4 * 4096) \
+        + 565 * P + 301 * L + 12 == 1_588_523_020
+    assert grow == 2_382_784_536
+    assert 4 * N * P == K * P == 268_435_456
+    assert grow + 2 * 268_435_456 < 80e9 / 20
 
 
 def test_system_defaults_construct_on_cuda_only():
