@@ -159,7 +159,36 @@ line detection as part of extraction.
    card against the port on the CPU: integer outputs equal, refined
    keypoints within SUBPIX_TOL_PX;
 13. the bench: `python -m plslam_tpu_torch.bench` once as a subprocess:
-   exit 0, its JSON line with no null field and `degraded` false, printed.
+   exit 0, its JSON line with no null field and `degraded` false, printed;
+14. the multi-card phase, after a probe line (cards, NCCL and its version,
+   the card's name and power limit): the multistream phase's 16 streams
+   (their maps and frames through files) and the KITTI 00-scale global BA
+   window of tests/test_sharded_ba_scale.py (512 keyframes x 51,200
+   landmarks, `obs_span` 6, seed 11, 2 + 3 LM iterations) on spawned
+   `torch.distributed` ranks (`parallel/mesh.py`): (a) NCCL, one rank per
+   card, and (b) gloo, 2 and 4 ranks sharing card 0. Each rank runs
+   `sharded_bundle_adjust` over the mesh (its result carries the LM
+   decisions), times the camera system's all-reduce
+   alone, runs the edge-sharded pose system on 12,288 edges against the
+   one-process form in `world` ranges (within 1e-5 x its largest entry),
+   then `BatchedTracker(mesh=)` over 4 streams per rank under
+   deterministic algorithms (24 frames at world 4, 10 at the smaller
+   worlds). Checks: world 1 bit-equal to the one-process solver; worlds
+   >= 2 the one-process form's LM decisions in `world` ranges, its cost
+   within 1e-5 relative, rotations within 1e-4 and translations within
+   5e-3 m (MC_R_TOL, MC_T_TOL), equal inlier verdicts; every rank's
+   replicated outputs bit-equal to rank 0's; each rank's K1 launches 3 per
+   frame; streams 0-3 and 12-15 of each world that tracks them against
+   one-process S = 4 trackers over 8 frames, bit-equal or within the
+   multistream phase's bars (1e-4 on the first frame, 1e-3 over 8,
+   inliers within 2); at world 4 each stream's ATE < 0.05 m and >= 30
+   inliers per stream and frame; `multichip.dryrun_multichip` at world 4
+   over gloo on card 0 passes, each of its ranks launching K1 (its
+   launches join the kernels line).
+   It prints the BA ms per LM iteration per world beside the one-process
+   form's, the all-reduce ms, peak memory per rank, the aggregate lockstep
+   frames/s per world, labelled as ranks sharing one card (mechanics, not
+   scaling), and a witness: the one-process BA in 4 ranges against 1.
 
 Any failed check exits non-zero. The last line is the device JSON; the line
 before it lists the kernels with their launch counts (every phase) and
@@ -171,6 +200,7 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -1546,37 +1576,12 @@ def render_streams(n_streams=MS_STREAMS, n_frames=MS_FRAMES + 1):
 
 def stream_maps(cfg, frames, depths):
     """Each stream's map on the card: a keyframe at the origin and points
-    from frame 0's depth (as `run_slice` bootstraps its map)."""
-    from plslam_tpu_torch.geometry import camera
-    from plslam_tpu_torch.mapstate import state as mstate
-    from plslam_tpu_torch.models import mapping
-    from plslam_tpu_torch.ops import extract, stereo
+    from frame 0's depth (`multichip.depth_map`, as `run_slice` bootstraps
+    its map)."""
+    from plslam_tpu_torch.parallel import multichip
     device = torch.device("cuda", 0)
-    ext_cfg = extract.ExtractorConfig(n_features=cfg.n_features,
-                                      n_levels=cfg.n_levels)
-    sf, _ = extract.scale_factors(ext_cfg, device)
-    cam = camera.Camera.create(cfg.fx, cfg.fy, cfg.cx, cfg.cy,
-                               width=cfg.width, height=cfg.height)
-    extractor = extract.PointExtractor(ext_cfg, cfg.height,
-                                       cfg.width).to(device)
-    map_cfg = mstate.MapConfig(max_kf=cfg.max_kf, max_pt=cfg.max_pt,
-                               max_ln=cfg.max_ln, n_kp=cfg.n_features,
-                               n_lf=cfg.n_lf, n_levels=cfg.n_levels)
-    maps = []
-    for s in range(frames.shape[0]):
-        f = extractor(torch.from_numpy(frames[s, 0]).to(device)
-                      .to(torch.float32))
-        f = f._replace(uv_un=camera.undistort_pixels(cam, f.uv))
-        ms = mstate.allocate(map_cfg, device)
-        mapping.insert_keyframe(cam, ms, f, torch.eye(4, device=device),
-                                torch.full((cfg.n_features,), -1,
-                                           dtype=torch.int32, device=device),
-                                0, sf)
-        mapping.create_points_from_depth(
-            cam, ms, ms.n_kf - 1, stereo.depth_at(
-                torch.from_numpy(depths[s]).to(device), f.uv), sf)
-        maps.append(ms)
-    return maps
+    return [multichip.depth_map(cfg, frames[s, 0], depths[s], device)
+            for s in range(frames.shape[0])]
 
 
 def run_batched(cfg, maps, frames, n_frames, use_graphs=True, record=None):
@@ -1587,9 +1592,10 @@ def run_batched(cfg, maps, frames, n_frames, use_graphs=True, record=None):
     (a list), K1's batched calls of the step of frame 1 are appended to it
     (eager runs). Returns poses (F, S, 4, 4), scalars (F, S, 6), step
     seconds, launches, peak memory, captures and replays."""
+    from contextlib import contextmanager, nullcontext
     from plslam_tpu_torch.mapstate import state as mstate
     from plslam_tpu_torch.ops import gated_match as gm
-    from plslam_tpu_torch.parallel import multistream
+    from plslam_tpu_torch.parallel import multichip, multistream
     device = torch.device("cuda", 0)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
@@ -1601,28 +1607,21 @@ def run_batched(cfg, maps, frames, n_frames, use_graphs=True, record=None):
     def recording(args, gated, in_dims=(None,) * 9, S=1):
         record.append(([t.clone() for t in args], tuple(in_dims), S, gated))
         return launch(args, gated, in_dims, S)
-    Ts, sc, secs = [], [], []
-    gm.gated_hamming_best2.launches = 0
-    try:
-        for j in range(n_frames):
-            imgs = frames[:, 1 + j]
-            if record is not None and j == 1:
-                gm._launch = recording
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            T, scalars = bt.step(imgs)
-            torch.cuda.synchronize()
-            secs.append(time.perf_counter() - t0)
+
+    @contextmanager
+    def recorded():
+        gm._launch = recording
+        try:
+            yield
+        finally:
             gm._launch = launch
-            Ts.append(T.cpu().numpy())
-            sc.append(scalars.cpu().numpy())
-    finally:
-        gm._launch = launch
-    return dict(poses=np.stack(Ts), scalars=np.stack(sc), secs=secs,
-                launches=gm.gated_hamming_best2.launches,
-                peak=torch.cuda.max_memory_allocated(device),
-                captures=bt.graphs.captures, replays=bt.graphs.replays,
-                capture_s=bt.graphs.capture_s, bt=bt)
+    out = multichip.lockstep(
+        bt, frames, n_frames, device, around=lambda j: recorded()
+        if record is not None and j == 1 else nullcontext())
+    out.update(peak=torch.cuda.max_memory_allocated(device),
+               captures=bt.graphs.captures, replays=bt.graphs.replays,
+               capture_s=bt.graphs.capture_s, bt=bt)
+    return out
 
 
 def run_alone(cfg, maps, frames, n_frames, moved=0.0):
@@ -1883,7 +1882,7 @@ def run_multistream_phase(gm, launches):
         + f"; phase {time.perf_counter() - t_phase:.1f} s")
     if bad:
         fail("multistream: " + "; ".join(bad))
-    return rates, k1
+    return cfg, Ts, frames, maps
 
 
 def check_round_robin(cfg, maps, frames, Ts, launches, bad):
@@ -2473,6 +2472,267 @@ def run_data_phases(launches, keep, Ts_sys, frames_sys):
     run_bench_phase()
 
 
+# ---------------------------------------------------------------------------
+# the multi-card phase (item 14 of the module docstring)
+
+MC_STREAMS_PER_RANK = 4
+MC_GLOO_WORLDS = (2, 4)     # ranks sharing card 0 over gloo
+MC_CURVE_FRAMES = 10    # lockstep frames of the smaller worlds; 2-9 timed
+MC_BA = dict(K=512, P=51200, iters_a=2, iters_b=3, seed=11, edges=12288)
+MC_COST_RTOL, MC_EDGE_TOL = 1e-5, 1e-5
+# poses of worlds >= 2 against the one-process form: rotation entries
+# within 1e-4, translations within tests/test_sharded_ba_scale.py's 5e-3
+# m. The camera system summed in another order moves this window's poses
+# by ~1e-3 m: one process in 4 ranges against 1 range, 1.33e-3 m and
+# 5.2e-6 in rotation (H100, multi-card phase's witness line), so a 1e-4 m
+# bar is below the float32 floor of a 205 m trajectory held by 2 cameras
+MC_R_TOL, MC_T_TOL = 1e-4, 5e-3
+
+
+def multicard_rank(mesh, ba, lockstep):
+    """A rank of the multi-card phase: `multichip.ba_rank(mesh, **ba)`,
+    then `multichip.lockstep_rank(mesh, *lockstep)`."""
+    from plslam_tpu_torch.parallel import multichip
+    return dict(ba=multichip.ba_rank(mesh, **ba),
+                lockstep=multichip.lockstep_rank(mesh, *lockstep))
+
+
+def _pose_gap(a, b) -> tuple:
+    """The largest gap of two (K, 4, 4) pose stacks' rotation entries and
+    of their translation entries (m)."""
+    return (float(np.abs(a[:, :3, :3] - b[:, :3, :3]).max()),
+            float(np.abs(a[:, :3, 3] - b[:, :3, 3]).max()))
+
+
+def _ba_gaps(label, o, ref, exact: bool) -> list:
+    """A mesh BA result against the one-process one: bit for bit
+    (`exact`), else the same LM decisions, the cost within MC_COST_RTOL
+    relative, rotations within MC_R_TOL, translations within MC_T_TOL and
+    equal inlier verdicts."""
+    keys = ("kf_T", "pt_xyz", "ln_xyz", "obs_inlier", "ln_obs_inlier")
+    if exact:
+        diff = [k for k in keys if not np.array_equal(o[k], ref[k])]
+        diff += [k for k in ("cost", "accepted") if o[k] != ref[k]]
+        return [f"{label}: not bit-equal to the one-process form: {diff}"] \
+            if diff else []
+    bad = []
+    if o["accepted"] != ref["accepted"]:
+        bad.append(f"{label}: LM decisions differ ({o['accepted']} against "
+                   f"{ref['accepted']})")
+    if not abs(o["cost"] - ref["cost"]) <= MC_COST_RTOL * abs(ref["cost"]):
+        bad.append(f"{label}: cost {o['cost']} against {ref['cost']}")
+    rot, t = _pose_gap(o["kf_T"], ref["kf_T"])
+    if not (rot <= MC_R_TOL and t <= MC_T_TOL):
+        bad.append(f"{label}: poses apart by {rot:.2e} (rotation), "
+                   f"{t:.2e} m (translation)")
+    for k in ("obs_inlier", "ln_obs_inlier"):
+        if not np.array_equal(o[k], ref[k]):
+            bad.append(f"{label}: {k} differs")
+    return bad
+
+
+def _replicated_gaps(label, out) -> list:
+    """Every rank's replicated outputs against rank 0's, bit for bit."""
+    bad = []
+    for r, o in enumerate(out[1:], 1):
+        for part, keys in (("ba", ("kf_T", "pt_xyz", "obs_inlier", "H",
+                                   "b", "cost", "accepted")),
+                           ("lockstep", ("poses", "scalars"))):
+            for k in keys:
+                x, y = o[part][k], out[0][part][k]
+                if not (np.array_equal(x, y) if isinstance(x, np.ndarray)
+                        else x == y):
+                    bad.append(f"{label}: rank {r}'s {part} {k} differs "
+                               f"from rank 0's")
+    return bad
+
+
+def multicard_ba_references(worlds) -> dict:
+    """The one-process form of the KITTI-like window, prepared for each
+    world size W of `worlds`, through `timed_bundle_adjust` in W ranges on
+    the card (after a small window's warm-up)."""
+    from plslam_tpu_torch.parallel import multichip, sharded_ba
+    device = torch.device("cuda", 0)
+    on_card = lambda p: p._replace(**{k: v.to(device) for k, v in
+                                      p._asdict().items()
+                                      if torch.is_tensor(v)})
+    small = multichip.kitti_like_problem(8, 256, seed=MC_BA["seed"])
+    multichip.timed_bundle_adjust(None, on_card(small), multichip.KITTI_CAM,
+                                  1, 1)
+    prob = multichip.kitti_like_problem(MC_BA["K"], MC_BA["P"],
+                                        seed=MC_BA["seed"])
+    one = {W: multichip.timed_bundle_adjust(
+        None, on_card(sharded_ba.prepare_problem(prob, W)),
+        multichip.KITTI_CAM, MC_BA["iters_a"], MC_BA["iters_b"], n_shards=W)
+        for W in sorted(set(worlds))}
+    torch.cuda.empty_cache()
+    return one
+
+
+def multicard_tracker_references(cfg, maps, frames, groups) -> dict:
+    """{g: run} of streams g .. g + MC_STREAMS_PER_RANK - 1 through a
+    one-process graphed `BatchedTracker` over MS_ALONE_FRAMES frames under
+    deterministic algorithms, for each first stream g of `groups`."""
+    n = MC_STREAMS_PER_RANK
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        return {g: run_batched(cfg, maps[g:g + n], frames[g:g + n],
+                               MS_ALONE_FRAMES) for g in groups}
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def _tracker_row(label, out, refs):
+    """A world's lockstep rate and its streams against the one-process
+    groups of `refs` that it tracked; returns (frames/s over the ranks,
+    failures)."""
+    lk = out[0]["lockstep"]
+    x = np.array(lk["secs"][MS_TIMED[0]:MC_CURVE_FRAMES])
+    n_s, F, S = lk["poses"].shape[1], MS_ALONE_FRAMES, MC_STREAMS_PER_RANK
+    fps = n_s * len(x) / float(x.sum())
+    peaks = " ".join(f"{o['lockstep']['peak'] / 2**20:.0f}" for o in out)
+    print(f"multi-card: BatchedTracker {label}, {n_s // len(out)} streams "
+          f"per rank: lockstep step ms median {1e3 * float(np.median(x)):.2f}"
+          f" p90 {1e3 * float(np.percentile(x, 90)):.2f}, {fps:.1f} frames/s"
+          f" over the ranks; peak per rank (MiB) {peaks}; {lk['captures']} "
+          f"captures per rank")
+    bad = []
+    for g, r in refs.items():
+        if g + S > n_s:
+            continue
+        got_T, got_s = lk["poses"][:F, g:g + S], lk["scalars"][:F, g:g + S]
+        gap = _pose_gaps(got_T, r["poses"])
+        first = float(np.abs(got_T[0] - r["poses"][0]).max())
+        d_inl = int(np.abs(got_s[..., 0].astype(int)
+                           - r["scalars"][..., 0]).max())
+        eq = bool(np.array_equal(got_T, r["poses"])
+                  and np.array_equal(got_s, r["scalars"]))
+        print(f"multi-card: {label}, streams {g}-{g + S - 1} against a "
+              f"one-process S={S} tracker over {F} frames: bit-equal {eq}, "
+              f"first frame {first:.1e}, pose gap per stream "
+              f"{' '.join(f'{v:.1e}' for v in gap)}, inliers within {d_inl}")
+        if not eq and (first > MS_T_TOL or gap.max() > MS_T_TOL_SEQ
+                       or d_inl > MS_INLIERS):
+            bad.append(f"{label}: streams {g}-{g + S - 1} differ from the "
+                       f"one-process tracker: first frame {first:.2e}, {F} "
+                       f"frames {gap.max():.2e}, inliers {d_inl}")
+    return fps, bad
+
+
+def run_multicard_phase(launches, cfg, Ts, frames, maps, work):
+    """The multi-card phase (item 14 of the module docstring); `work` is a
+    scratch directory in the checkout."""
+    from concurrent.futures import ThreadPoolExecutor
+    import torch.distributed as dist
+    from plslam_tpu_torch.parallel import multichip, streams
+    t_phase = time.perf_counter()
+    n_cards = torch.cuda.device_count()
+    nccl = dist.is_nccl_available()
+    print(f"multi-card: probe: {n_cards} card(s), NCCL available {nccl}, "
+          f"NCCL {torch.cuda.nccl.version() if nccl else 'absent'}, "
+          f"card {card_line()}")
+    if not nccl:
+        fail("multi-card: this PyTorch has no NCCL")
+    # (a) NCCL, one rank per card; (b) gloo, ranks sharing card 0
+    worlds = [("nccl", n_cards)] + [("gloo", w) for w in MC_GLOO_WORLDS]
+    t0 = time.perf_counter()
+    one_ba = multicard_ba_references([w for _, w in worlds])
+    print(f"multi-card: one-process BA references in "
+          f"{time.perf_counter() - t0:.1f} s")
+    paths = multichip.save_streams(str(work), maps, frames)
+    S, n_streams = MC_STREAMS_PER_RANK, len(maps)
+    runs, bad = {}, []
+    for backend, world in worlds:
+        label = f"{backend} world {world}"
+        n_frames = MS_FRAMES if S * world == n_streams else MC_CURVE_FRAMES
+        t0 = time.perf_counter()
+        out = streams.spawn(
+            multicard_rank, world, backend,
+            device=None if backend == "nccl" else "cuda:0", timeout=600,
+            args=(MC_BA, (cfg, *paths, n_frames, True, S * world)))
+        runs[label] = out
+        n_k1 = [o["lockstep"]["launches"] for o in out]
+        launches[f"multi-card, {label}"] = sum(n_k1)
+        print(f"multi-card: {label}: {time.perf_counter() - t0:.1f} s "
+              f"spawned to joined; K1 launches per rank {n_k1}")
+        bad += _replicated_gaps(label, out)
+        bad += [f"{label}: rank {r} launched K1 {n} times, expected "
+                f"{3 * n_frames}" for r, n in enumerate(n_k1)
+                if n != 3 * n_frames]
+        bad += _ba_gaps(f"{label} BA", out[0]["ba"], one_ba[world],
+                        exact=world == 1)
+        for o in out:
+            e = o["ba"]
+            for x, y in ((e["H"], e["H1"]), (e["b"], e["b1"])):
+                gap = float(np.abs(x - y).max())
+                if not gap <= MC_EDGE_TOL * float(np.abs(y).max()):
+                    bad.append(f"{label}: the edge system is {gap:.3e} from "
+                               f"the one-process form")
+    # the dry run's ranks beside the one-process trackers (no timing is
+    # read there); a failed rank raises from `result`
+    t0 = time.perf_counter()
+    W = max(MC_GLOO_WORLDS)
+    with ThreadPoolExecutor(1) as pool:
+        dry = pool.submit(multichip.dryrun_multichip, W, "gloo", "cuda:0")
+        refs = multicard_tracker_references(cfg, maps, frames,
+                                            (0, n_streams - S))
+        dry = dry.result()
+    n_k1 = [o["launches"] for o in dry]
+    launches["multi-card, dry run"] = sum(n_k1)
+    print(f"multi-card: dryrun_multichip world {W} (gloo, card 0) with the "
+          f"one-process trackers beside it: {time.perf_counter() - t0:.1f} "
+          f"s; K1 launches per rank {n_k1}")
+    bad += [f"dry run: rank {r} launched no K1" for r, n in enumerate(n_k1)
+            if n == 0]
+    print(f"multi-card: {MC_BA['K']} keyframes x {MC_BA['P']} landmarks, "
+          f"{MC_BA['iters_a']} + {MC_BA['iters_b']} LM iterations (ranks "
+          f"sharing card 0 time-slice it: mechanics, not a speed-up):")
+    rates = {}
+    for (backend, world), (label, out) in zip(worlds, runs.items()):
+        b, r1 = out[0]["ba"], one_ba[world]
+        peaks = " ".join(f"{o['ba']['peak'] / 2**20:.0f}" for o in out)
+        rot, t = _pose_gap(b["kf_T"], r1["kf_T"])
+        print(f"multi-card: BA {label}: {b['ms_per_iter']:.1f} ms per LM "
+              f"iteration (one process, {world} ranges: "
+              f"{r1['ms_per_iter']:.1f}); all-reduce of the camera system "
+              f"({b['allreduce_bytes'] / 1e6:.1f} MB) "
+              f"{b['allreduce_ms']:.3f} ms; BA peak per rank above what it "
+              f"held before (MiB) {peaks} (one process "
+              f"{r1['peak'] / 2**20:.0f}); steps accepted {b['accepted']};"
+              f" cost {b['cost']:.7g} (one process {r1['cost']:.7g}); poses "
+              f"against it {rot:.2e} rotation, {t:.2e} m translation")
+        rates[label], fails = _tracker_row(label, out, refs)
+        bad += fails
+    w1, w2 = sorted(one_ba)[0], sorted(one_ba)[-1]
+    rot, t = _pose_gap(one_ba[w2]["kf_T"], one_ba[w1]["kf_T"])
+    print(f"multi-card: witness, one process in {w2} against {w1} ranges "
+          f"(the camera system summed in another order): poses {rot:.2e} "
+          f"rotation, {t:.2e} m translation, cost "
+          f"{one_ba[w2]['cost']:.7g} / {one_ba[w1]['cost']:.7g}")
+    main_lk = runs[f"gloo world {max(MC_GLOO_WORLDS)}"][0]["lockstep"]
+    inl = main_lk["scalars"][..., 0]
+    ates = [synthetic_ate(main_lk["poses"][:, s], Ts[1:MS_FRAMES + 1])
+            for s in range(n_streams)]
+    print(f"multi-card: gloo world {max(MC_GLOO_WORLDS)}, {n_streams} "
+          f"streams x {MS_FRAMES} frames: ATE per stream (m) "
+          f"{' '.join(f'{a:.4f}' for a in ates)}; inliers min {inl.min()}")
+    if max(ates) >= MS_ATE:
+        bad.append(f"multi-card: stream ATE {max(ates):.4f} m")
+    if inl.min() < MIN_INLIERS:
+        bad.append(f"multi-card: {inl.min()} inliers on a stream and frame")
+    print(f"multi-card: aggregate lockstep frames/s over ranks sharing one "
+          f"card (mechanics, not scaling; deterministic algorithms): "
+          + ", ".join(f"{k} {v:.1f}" for k, v in rates.items())
+          + f"; phase {time.perf_counter() - t_phase:.1f} s")
+    if bad:
+        fail("multi-card: " + "; ".join(bad))
+
+
+def synthetic_ate(est, gt) -> float:
+    from plslam_tpu_torch.datasets import synthetic
+    return synthetic.ate_rmse(est, gt, align_scale=False)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2532,8 +2792,11 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s")
     keep = {}
     check_later_phases(gm, device, timing, launches, keep)
-    run_multistream_phase(gm, launches)
+    ms_streams = run_multistream_phase(gm, launches)
     run_data_phases(launches, keep, Ts_sys, frames_sys)
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as work:
+        run_multicard_phase(launches, *ms_streams, work)
     print(f"K1 launches: " + ", ".join(f"{k} {v}" for k, v in
                                        launches.items()))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")

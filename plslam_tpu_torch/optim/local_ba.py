@@ -22,6 +22,14 @@ reduced in turn into the camera system and its right-hand side, a running
 sum in place of the `psum`, and formed again for the back-substitution, so
 only one range's (K, P / n_shards, 6, 3) blocks are alive at a time. The
 costs that decide each step are summed over the ranges the same way.
+
+With a `mesh` (a rank of `parallel/mesh.py`) the window holds this rank's
+landmark range (`parallel/sharded_ba.shard_problem`): its ranges are summed
+as above, then the camera system and its right-hand side are all-reduced
+once per LM iteration, and each cost once (`utils/dist.psum`, the JAX
+package's `_psum`). The
+camera solve and the accept / reject decisions then run replicated on
+identical values; the back-substitution stays local to the rank.
 """
 from __future__ import annotations
 
@@ -31,6 +39,7 @@ import torch
 
 from ..geometry import se3
 from ..geometry.triangulation import inv3x3
+from ..utils.dist import psum, ranges
 from . import residuals
 
 CHI2_POINT = 5.991
@@ -70,6 +79,7 @@ class BAResult(NamedTuple):
     obs_inlier: torch.Tensor     # (K, P) bool, post-BA chi2 verdict
     ln_obs_inlier: torch.Tensor  # (K, L) bool
     cost: torch.Tensor
+    accepted: Optional[torch.Tensor] = None  # int64, `LMState.accepted`
 
 
 def _point_terms(prob: BAProblem, kf_T, pt_xyz, cam):
@@ -131,15 +141,10 @@ def _sharded(prob: BAProblem, n_shards: int, pt_xyz, ln_xyz, obs_in,
     shard's ranges."""
     if n_shards == 1:
         return [(prob, pt_xyz, ln_xyz, obs_in, ln_in)]
-    P, L = prob.pt_mask.shape[0], prob.ln_mask.shape[0]
-    sp, sl = -(-P // n_shards), -(-L // n_shards)   # the last one shorter
-    out = []
-    for i in range(n_shards):
-        a, b = min(i * sp, P), min((i + 1) * sp, P)
-        c, d = min(i * sl, L), min((i + 1) * sl, L)
-        out.append((_shard(prob, a, b, c, d), pt_xyz[a:b], ln_xyz[c:d],
-                    obs_in[:, a:b], ln_in[:, c:d]))
-    return out
+    return [(_shard(prob, a, b, c, d), pt_xyz[a:b], ln_xyz[c:d],
+             obs_in[:, a:b], ln_in[:, c:d])
+            for (a, b), (c, d) in zip(ranges(prob.pt_mask.shape[0], n_shards),
+                                      ranges(prob.ln_mask.shape[0], n_shards))]
 
 
 def _landmark_blocks(prob, cam, kf_T, pt_xyz, ln_xyz, obs_in, ln_in, lam,
@@ -220,10 +225,11 @@ def _back_substitute(prob, blocks, dc):
 
 
 def _solve_lm_step(prob, cam, kf_T, pt_xyz, ln_xyz, obs_in, ln_in, lam,
-                   robust: bool, n_shards: int = 1):
+                   robust: bool, n_shards: int = 1, mesh=None):
     """One damped normal-equations solve with Schur elimination of the
-    landmarks, their ranges reduced in turn (`n_shards`); returns the
-    stepped (kf_T, pt_xyz, ln_xyz)."""
+    landmarks, their ranges reduced in turn (`n_shards`) and, with a
+    `mesh`, summed over the ranks; returns the stepped (kf_T, pt_xyz,
+    ln_xyz)."""
     K = prob.kf_T.shape[0]
     dev = kf_T.device
     shards = _sharded(prob, n_shards, pt_xyz, ln_xyz, obs_in, ln_in)
@@ -235,6 +241,7 @@ def _solve_lm_step(prob, cam, kf_T, pt_xyz, ln_xyz, obs_in, ln_in, lam,
         S_i, bs_i = _reduced_camera_system(b)
         S, bs = (S_i, bs_i) if S is None else (S + S_i, bs + bs_i)
         kept = b if n_shards == 1 else None
+    S, bs = psum(mesh, S, bs)
 
     # fixed cameras: zero rows/cols, identity diagonal; damp the diagonal
     free_c = (prob.kf_mask & ~prob.kf_fixed).to(torch.float32)
@@ -271,14 +278,14 @@ def _rho(chi2, gate, robust: bool):
 
 
 def _total_cost(prob, cam, kf_T, pt_xyz, ln_xyz, obs_in, ln_in,
-                robust: bool, n_shards: int = 1):
+                robust: bool, n_shards: int = 1, mesh=None):
     """The (robust) cost of the window, a running sum over the landmark
-    shards."""
+    shards, summed over the ranks of `mesh`."""
     cost = None
     for sh in _sharded(prob, n_shards, pt_xyz, ln_xyz, obs_in, ln_in):
         c = _range_cost(sh[0], cam, kf_T, *sh[1:], robust)
         cost = c if cost is None else cost + c
-    return cost
+    return psum(mesh, cost)[0]
 
 
 def _range_cost(prob, cam, kf_T, pt_xyz, ln_xyz, obs_in, ln_in,
@@ -301,26 +308,31 @@ class LMState(NamedTuple):
     ln_in: torch.Tensor
     lam: torch.Tensor
     cost: torch.Tensor
+    # the accept / reject decisions, one bit per LM iteration since
+    # `ba_init`, the newest lowest (int64: the last 63 iterations)
+    accepted: torch.Tensor
 
 
 def ba_init(prob: BAProblem, cam, robust: bool = True,
-            n_shards: int = 1) -> LMState:
+            n_shards: int = 1, mesh=None) -> LMState:
     c0 = _total_cost(prob, cam, prob.kf_T, prob.pt_xyz, prob.ln_xyz,
-                     prob.obs_mask, prob.ln_obs_mask, robust, n_shards)
+                     prob.obs_mask, prob.ln_obs_mask, robust, n_shards, mesh)
     return LMState(prob.kf_T, prob.pt_xyz, prob.ln_xyz, prob.obs_mask,
-                   prob.ln_obs_mask, torch.full_like(c0, 1e-4), c0)
+                   prob.ln_obs_mask, torch.full_like(c0, 1e-4), c0,
+                   torch.zeros_like(c0, dtype=torch.int64))
 
 
 def ba_rounds(prob: BAProblem, cam, st: LMState, n_iters: int,
-              robust: bool = True, n_shards: int = 1) -> LMState:
+              robust: bool = True, n_shards: int = 1, mesh=None) -> LMState:
     """`n_iters` LM iterations from `st`; a step is kept when it lowers
-    the cost (summed over the landmark shards) to a finite value."""
+    the cost (summed over the landmark shards and ranks) to a finite
+    value."""
     for _ in range(n_iters):
         T2, p2, l2 = _solve_lm_step(prob, cam, st.kf_T, st.pt_xyz,
                                     st.ln_xyz, st.obs_in, st.ln_in, st.lam,
-                                    robust, n_shards)
+                                    robust, n_shards, mesh)
         c_new = _total_cost(prob, cam, T2, p2, l2, st.obs_in, st.ln_in,
-                            robust, n_shards)
+                            robust, n_shards, mesh)
         ok = (c_new < st.cost) & torch.isfinite(c_new)
         st = st._replace(
             kf_T=torch.where(ok, T2, st.kf_T),
@@ -328,7 +340,8 @@ def ba_rounds(prob: BAProblem, cam, st: LMState, n_iters: int,
             ln_xyz=torch.where(ok, l2, st.ln_xyz),
             lam=torch.where(ok, (st.lam * 0.5).clamp_min(1e-9),
                             (st.lam * 4.0).clamp_max(1e8)),
-            cost=torch.where(ok, c_new, st.cost))
+            cost=torch.where(ok, c_new, st.cost),
+            accepted=st.accepted * 2 + ok.to(torch.int64))
     return st
 
 
@@ -341,32 +354,36 @@ def _verdicts(prob, cam, st: LMState):
 
 
 def ba_demote(prob: BAProblem, cam, st: LMState,
-              n_shards: int = 1) -> LMState:
+              n_shards: int = 1, mesh=None) -> LMState:
     """Chi2 outlier demotion between the two LM phases; resets lambda and
     the reference cost."""
     obs_in, ln_in = _verdicts(prob, cam, st)
     c0 = _total_cost(prob, cam, st.kf_T, st.pt_xyz, st.ln_xyz, obs_in,
-                     ln_in, True, n_shards)
+                     ln_in, True, n_shards, mesh)
     return st._replace(obs_in=obs_in, ln_in=ln_in,
                        lam=torch.full_like(st.lam, 1e-4), cost=c0)
 
 
 def ba_finalize(prob: BAProblem, cam, st: LMState,
-                n_shards: int = 1) -> BAResult:
+                n_shards: int = 1, mesh=None) -> BAResult:
     """Final chi2 verdicts (the observations to erase from the map)."""
     obs_inlier, ln_obs_inlier = _verdicts(prob, cam, st)
     cost = _total_cost(prob, cam, st.kf_T, st.pt_xyz, st.ln_xyz, obs_inlier,
-                       ln_obs_inlier, False, n_shards)
+                       ln_obs_inlier, False, n_shards, mesh)
     return BAResult(st.kf_T, st.pt_xyz, st.ln_xyz, obs_inlier,
-                    ln_obs_inlier, cost)
+                    ln_obs_inlier, cost, st.accepted)
 
 
 def bundle_adjust(prob: BAProblem, cam, iters_a: int = 5,
-                  iters_b: int = 10, n_shards: int = 1) -> BAResult:
+                  iters_b: int = 10, n_shards: int = 1,
+                  mesh=None) -> BAResult:
     """`iters_a` robust iterations -> chi2 demotion -> `iters_b` more ->
     final verdicts (`LocalBundleAdjustmentWithLine`'s staged schedule),
-    the landmark axes reduced in `n_shards` ranges (1: all at once)."""
-    kw = dict(n_shards=n_shards)
+    the landmark axes reduced in `n_shards` ranges (1: all at once); with
+    a `mesh`, `prob` is this rank's landmark range and the result holds
+    this rank's landmarks (`parallel/sharded_ba.sharded_bundle_adjust`
+    gathers them)."""
+    kw = dict(n_shards=n_shards, mesh=mesh)
     st = ba_init(prob, cam, **kw)
     st = ba_rounds(prob, cam, st, iters_a, robust=True, **kw)
     st = ba_demote(prob, cam, st, **kw)

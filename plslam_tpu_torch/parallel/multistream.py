@@ -16,6 +16,11 @@ chain. The JAX `lax.cond(n_kf < max_kf - 1, ...)` is decided on the host
 from per-stream keyframe counts: while every stream has a free keyframe
 slot the chain runs on all of them; once one has none, a third step runs
 the chain on every stream and gives such a stream its map back as it was.
+With a `mesh` (`parallel/mesh.py`, one process per rank) each rank tracks
+its contiguous share of the streams through its own graphed step on its
+device; `step` takes every stream's frame, uploads only the rank's, and
+returns every stream's pose and scalars on every rank (an all-reduce after
+the replay, outside the graphs), as the JAX package's global arrays read.
 
 `RoundRobinTracker` time-multiplexes S streams through one `System`'s
 graphed chunk step. Each stream's map is copied into the System's bound map
@@ -33,6 +38,7 @@ from ..geometry import camera
 from ..mapstate import state as mstate
 from ..models import mapping, step_graph, tracking
 from ..ops import extract, lines
+from . import streams
 
 
 def _device(device) -> torch.device:
@@ -52,17 +58,28 @@ def copy_map(dst: mstate.MapState, src: mstate.MapState):
 
 class BatchedTracker:
     """Lockstep tracker over S streams, one map per stream, on one device
-    (`cuda` unless `device` names another). `step(imgs)` tracks every
-    stream one frame and runs the keyframe chain on every `kf_interval`-th
-    frame (the first included); with `use_graphs` (on CUDA) both steps
-    replay as CUDA graphs."""
+    (`cuda` unless `device` names another) or sharded over the ranks of a
+    `mesh` (each on the mesh's device, S divisible by the world size).
+    `step(imgs)` tracks every stream one frame and runs the keyframe chain
+    on every `kf_interval`-th frame (the first included); with
+    `use_graphs` (on CUDA) both steps replay as CUDA graphs."""
 
     def __init__(self, config, n_streams: int, kf_interval: int = 5,
-                 device=None, use_graphs: bool = True):
+                 device=None, use_graphs: bool = True, mesh=None):
         self.cfg = c = config
         self.S = n_streams
         self.kf_interval = kf_interval
-        self.device = _device(device)
+        self.mesh = mesh
+        if mesh is None:
+            self.device, self.stream_range = _device(device), (0, n_streams)
+        else:
+            if device is not None or n_streams % mesh.world:
+                raise ValueError(f"a mesh tracker runs on the mesh's device, "
+                                 f"its {n_streams} streams divisible by "
+                                 f"{mesh.world} ranks")
+            self.device = mesh.device
+            self.stream_range = streams.share(mesh, n_streams)
+        self.S_local = self.stream_range[1] - self.stream_range[0]
         self.cam = camera.Camera.create(c.fx, c.fy, c.cx, c.cy, c.k1, c.k2,
                                         c.p1, c.p2, c.k3, c.width, c.height)
         # the JAX BatchedTracker's extractor: the config's budgets and
@@ -129,18 +146,25 @@ class BatchedTracker:
             ms, imgs, T_last, velocity, frame_id, *room)
 
     def reset(self):
-        """Empty maps, identity poses and velocities."""
-        eye = torch.eye(4, device=self.device).expand(self.S, 4, 4)
+        """Empty maps, identity poses and velocities (this rank's
+        streams)."""
+        eye = torch.eye(4, device=self.device).expand(self.S_local, 4, 4)
         self.ms = mstate.broadcast(mstate.allocate(self.map_cfg,
-                                                   self.device), self.S)
+                                                   self.device), self.S_local)
         self.T_last, self.velocity = eye.clone(), eye.clone()
         self.frame_id = -1
-        self.n_kf_host = np.zeros(self.S, np.int64)
+        self.n_kf_host = np.zeros(self.S_local, np.int64)
 
     def bootstrap(self, ms_batch: mstate.MapState, T_batch=None):
         """Install the streams' initial maps (stacked, `mstate.stack`; the
         steps update it in place, the JAX package's donation) and
-        optionally their (S, 4, 4) poses."""
+        optionally their (S, 4, 4) poses. With a mesh, of all S streams:
+        the rank keeps its share (on its device, a view where the map is
+        there already)."""
+        if self.mesh is not None:
+            ms_batch = streams.shard_streams(self.mesh, ms_batch)
+            if T_batch is not None:
+                T_batch = streams.shard_streams(self.mesh, T_batch)
         self.ms = ms_batch
         self.n_kf_host = ms_batch.n_kf.cpu().numpy().astype(np.int64)
         if T_batch is not None:
@@ -160,12 +184,15 @@ class BatchedTracker:
     def step(self, imgs):
         """imgs (S, H, W) uint8 or float: every stream one frame, and the
         keyframe chain on the cadence. Returns (T (S, 4, 4), scalars
-        (S, 6)) on the device, nothing read back."""
+        (S, 6)) on the device, nothing read back; with a mesh, the rank
+        uploads its streams' frames only and every rank returns all S
+        streams' results."""
         self.frame_id += 1
-        frame_id = torch.full((self.S,), self.frame_id, dtype=torch.int32,
-                              device=self.device)
-        args = (self.ms, self._upload(imgs), self.T_last, self.velocity,
-                frame_id)
+        frame_id = torch.full((self.S_local,), self.frame_id,
+                              dtype=torch.int32, device=self.device)
+        lo, hi = self.stream_range
+        args = (self.ms, self._upload(imgs[lo:hi]), self.T_last,
+                self.velocity, frame_id)
         kind = "track"
         if self.frame_id % self.kf_interval == 0:
             room = self.n_kf_host < self.map_cfg.max_kf - 1
@@ -176,6 +203,9 @@ class BatchedTracker:
             self.n_kf_host += room
         T, vel, scalars = self._steps[kind](*args)
         self.T_last, self.velocity = T, vel
+        if self.mesh is not None:
+            T, scalars = (streams.gather_streams(self.mesh, x)
+                          for x in (T, scalars))
         return T, scalars
 
 

@@ -461,3 +461,42 @@ def test_round_robin_captures_once_per_step_key():
     assert caps == [caps[0]] * 4 and caps[0] >= 1
     assert rr.slam.graphs.replays == 3 * 4 * 2 - caps[0]
     assert [st["n_kf"] for st in rr.streams] == [3, 3, 3]
+
+
+def _mesh_ba(world, backend, device=None):
+    """A small KITTI-like window (16 keyframes x 2048 landmarks) through
+    `multichip.ba_rank` on `world` spawned ranks, and the one-process form
+    in `world` ranges on card 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from plslam_tpu_torch.parallel import multichip, sharded_ba, streams
+    K, P = 16, 2048
+    out = streams.spawn(multichip.ba_rank, world, backend, device=device,
+                        args=(K, P, 2, 3, 11, 1024), timeout=600)
+    prob = sharded_ba.prepare_problem(multichip.kitti_like_problem(K, P),
+                                      world)
+    prob = prob._replace(**{k: v.cuda() for k, v in prob._asdict().items()
+                            if torch.is_tensor(v)})
+    return out, multichip.timed_bundle_adjust(None, prob, multichip.KITTI_CAM,
+                                              2, 3, n_shards=world)
+
+
+@pytest.mark.cuda
+def test_nccl_world1_bundle_adjust_is_the_unsharded_solver():
+    """One NCCL rank: the mesh BA bit for bit the one-process solver."""
+    import chip_smoke
+    (out,), one = _mesh_ba(1, "nccl")
+    assert chip_smoke._ba_gaps("world 1", out, one, exact=True) == []
+
+
+@pytest.mark.cuda
+def test_gloo_world2_on_one_card():
+    """Two gloo ranks sharing card 0: the one-process form's LM decisions,
+    its cost within 1e-5 relative, poses within 1e-4, equal inlier
+    verdicts; the replicated outputs equal across the ranks."""
+    import chip_smoke
+    out, one = _mesh_ba(2, "gloo", "cuda:0")
+    assert chip_smoke._ba_gaps("world 2", out[0], one, exact=False) == []
+    for k in ("kf_T", "pt_xyz", "obs_inlier", "H", "b"):
+        assert np.array_equal(out[1][k], out[0][k]), k
+    assert out[1]["cost"] == out[0]["cost"]

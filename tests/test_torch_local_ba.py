@@ -122,6 +122,26 @@ def test_bundle_adjust_matches_jax(window):
     np.testing.assert_array_equal(rt.kf_T.numpy()[:2], arrays["kf_T"][:2])
 
 
+def test_bundle_adjust_records_its_decisions(window):
+    """`BAResult.accepted` holds one bit per LM iteration, the first
+    iteration's highest: the steps that lowered lambda when the schedule
+    runs one iteration at a time."""
+    arrays, info = window
+    pt = tba.BAProblem(**{k: _t(v) for k, v in arrays.items()},
+                       ln_info=_t(info))
+    res = tba.bundle_adjust(pt, TCAM, iters_a=5, iters_b=10)
+    st, bits = tba.ba_init(pt, TCAM), ""
+    for phase, n in enumerate((5, 10)):
+        if phase:
+            st = tba.ba_demote(pt, TCAM, st)
+        for _ in range(n):
+            lam = float(st.lam)
+            st = tba.ba_rounds(pt, TCAM, st, 1)
+            bits += "1" if float(st.lam) < lam else "0"
+    assert format(int(res.accepted), "015b") == bits
+    assert torch.equal(res.kf_T, st.kf_T)
+
+
 def _map(all_bound: bool):
     """A JAX map of 6 keyframes (capacity 8) over 80 points (capacity 128),
     each keyframe binding 48 of its 64 keypoints, or all 64 with

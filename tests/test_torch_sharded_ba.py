@@ -89,7 +89,7 @@ def window():
 def test_one_shard_is_the_unsharded_solver(window):
     _, tp, _, _, single = window
     res = sharded_ba.sharded_bundle_adjust(
-        sharded_ba.prepare_problem(tp, 1), TCAM_BA, 1)
+        1, sharded_ba.prepare_problem(tp, 1), TCAM_BA)
     for x, y in zip(single, res):
         assert torch.equal(x, y)
 
@@ -135,7 +135,7 @@ def test_sharded_bundle_adjust_matches_jax(window, n_shards):
     sp = sharded_ba.prepare_problem(tp, n_shards)
     assert sp.pt_mask.shape[0] % n_shards == 0
     assert sp.ln_mask.shape[0] % n_shards == 0
-    res = sharded_ba.sharded_bundle_adjust(sp, TCAM_BA, n_shards)
+    res = sharded_ba.sharded_bundle_adjust(n_shards, sp, TCAM_BA)
     _agree(prob, res, single, Ts_true)
     _agree(prob, res, ref, Ts_true)
 
@@ -163,7 +163,7 @@ def test_one_fixed_camera_window_agrees_up_to_scale(window_one_fixed,
     cost within 5%, the inlier verdicts >= 99% equal."""
     prob, tp, ref = window_one_fixed
     res = sharded_ba.sharded_bundle_adjust(
-        sharded_ba.prepare_problem(tp, n_shards), TCAM_BA, n_shards)
+        n_shards, sharded_ba.prepare_problem(tp, n_shards), TCAM_BA)
     P = prob.pt_mask.shape[0]
     T, T_ref = res.kf_T.numpy(), np.asarray(ref.kf_T)
     X, X_ref = res.pt_xyz.numpy()[:P], np.asarray(ref.pt_xyz)
