@@ -25,6 +25,16 @@ line detection as part of extraction.
    ATE below 5% of the path length (no alignment: the map is metric and
    frame 0 is the origin), and that every search of the step went through
    K1 (3 per frame);
+3b. the entry phase: `plslam_tpu_torch.entry.entry()`, the flagship
+   per-frame program (extraction at 240x320, 512 features, 3 levels ->
+   undistortion -> local-map tracking against 2048 points), graphed: on its
+   example arguments (no pair passes the Hamming gate: T the prediction, 0
+   inliers) and on frame 1 of tests/test_torch_tracking.py's orbit against
+   a map from frame 0's rendered depth, each graphed result bit-equal to
+   the same step run eagerly, the rendered frame within 1e-3 in T and 2
+   inliers of the port on the CPU (>= 30 inliers); the step's host ms
+   (median, p90) over 100 replays and the device ms inside its graph, 2
+   captures, 3 K1 launches per step;
 4. the system phase: `System.track_monocular` over the 60-frame system
    sequence (`make_scene(seed=1)`, orbit) at the `SLAMConfig` defaults with
    the renderer's camera and lines off (loop closing and map growth on). It
@@ -288,6 +298,15 @@ MS_ATE = 0.05             # m, tests/test_multistream.py's bar
 MS_T_TOL, MS_T_TOL_SEQ, MS_INLIERS = 1e-4, 1e-3, 2
 MS_MOVED = 1e-6           # m, the witness's move of the first pose
 RR_STREAMS, RR_CHUNK = 4, 6
+ENTRY_REPLAYS = 100       # timed replays of entry()'s graphed step
+# entry()'s step on the card against the port on the CPU on one rendered
+# frame: tests/test_torch_tracking.py's bars over a tracked sequence (T) and
+# per frame (inliers). One step runs 3 pose optimizations (60 LM
+# iterations) around a second search, summed in another order on each
+# device; the card against the CPU read 2.24e-4 with equal inliers on an
+# H100 80GB HBM3, where the JAX package against the port on the CPU reads
+# 5.1e-5 (tests/test_torch_entry.py)
+ENTRY_T_TOL, ENTRY_INLIERS = 1e-3, 2
 
 
 def fail(msg: str):
@@ -2773,6 +2792,7 @@ def main() -> int:
 
     launches = {}
     launches["slice"] = check_slice()
+    run_entry_phase(gm, launches, timing)
     sys_out = check_system_phase(gm, Ts_sys, frames_sys, timing)
     launches["system"] = sys_out["launches"]
     check_map_io(sys_out, frames_sys)
@@ -2816,6 +2836,140 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def entry_rendered_input(device):
+    """entry()'s widths on a rendered frame: frame 1 of
+    tests/test_torch_tracking.py's 240x320 orbit (`make_scene(seed=0)`, fx
+    250) and a map of points from frame 0's rendered depth, keyframe 0 at
+    the origin. Returns (img, ms, T_pred, ground-truth pose of frame 1)."""
+    from plslam_tpu_torch import entry as tentry
+    from plslam_tpu_torch.datasets import synthetic
+    from plslam_tpu_torch.mapstate import state as mstate
+    from plslam_tpu_torch.models import mapping
+    from plslam_tpu_torch.ops import extract, stereo
+    cam, ext_cfg, map_cfg, sf, _ = tentry._build(device)
+    h, w = tentry.HEIGHT, tentry.WIDTH
+    scene = synthetic.make_scene(seed=0, width=w, height=h, fx=250.0,
+                                 fy=250.0)
+    Ts = synthetic.trajectory(24, "orbit")
+    img0, depth0 = synthetic.render_rgbd(scene, Ts[0])
+    img1 = synthetic.render(scene, Ts[1])
+    img0, img1 = (torch.from_numpy(x.astype(np.uint8).astype(np.float32))
+                  .to(device) for x in (img0, img1))
+    f = extract.PointExtractor(ext_cfg, h, w).to(device)(img0)
+    ms = mstate.allocate(map_cfg, device)
+    mapping.insert_keyframe(cam, ms, f, torch.eye(4, device=device),
+                            torch.full((map_cfg.n_kp,), -1, dtype=torch.int32,
+                                       device=device), 0, sf)
+    mapping.create_points_from_depth(
+        cam, ms, 0, stereo.depth_at(torch.from_numpy(depth0).to(device),
+                                    f.uv), sf)
+    return img1, ms, torch.eye(4, device=device), Ts[1] @ np.linalg.inv(Ts[0])
+
+
+def run_entry_phase(gm, launches, timing):
+    """`entry()`, the flagship per-frame program (`plslam_tpu_torch/entry`),
+    graphed on the card: on its example arguments and on a rendered frame
+    with a map from rendered depth, the graphed step bit-equal to the same
+    step run eagerly; the rendered frame within tests/test_torch_tracking's
+    bars of the port on the CPU; the step's host ms (median, p90) over
+    ENTRY_REPLAYS replays, each synchronized, and the device ms inside its
+    graph (a CUDA event pair around each replay). K1's launches of the
+    graphed runs go to `launches["entry"]`. Then K1's three real calls of
+    one eager step on the rendered frame (N = 512 queries against the
+    2048-point map), recorded, against its plain version (`check_case`),
+    into `timing` under "entry, <search>"."""
+    from plslam_tpu_torch import entry as tentry
+    t_phase = time.perf_counter()
+    device = torch.device("cuda", 0)
+    step, example = tentry.entry()
+    rendered = entry_rendered_input(device)
+    gm.gated_hamming_best2.launches = 0
+    graphed = {"example": [step(*example) for _ in range(2)]}
+    img, ms, T_pred, T_gt = rendered
+    graphed["rendered"] = [step(img, ms, T_pred)]
+    replay, spans = torch.cuda.CUDAGraph.replay, []
+
+    def timed_replay(graph):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        replay(graph)
+        b.record()
+        spans.append((a, b))
+    host = []
+    torch.cuda.CUDAGraph.replay = timed_replay
+    try:
+        for _ in range(ENTRY_REPLAYS):
+            t0 = time.perf_counter()
+            out = step(img, ms, T_pred)
+            torch.cuda.synchronize()
+            host.append(time.perf_counter() - t0)
+    finally:
+        torch.cuda.CUDAGraph.replay = replay
+    graphed["rendered"].append(out)
+    n_calls = 2 + 1 + ENTRY_REPLAYS
+    launches["entry"] = gm.gated_hamming_best2.launches
+    g = step.graphs
+    dev_ms = [a.elapsed_time(b) for a, b in spans]
+    bad = []
+    if launches["entry"] != 3 * n_calls:
+        bad.append(f"K1 launched {launches['entry']} times in {n_calls} "
+                   f"steps, expected {3 * n_calls}")
+    if (g.captures, g.replays) != (2, n_calls - 2):
+        bad.append(f"{g.captures} captures and {g.replays} replays, "
+                   f"expected 2 and {n_calls - 2}")
+    args = {"example": example, "rendered": (img, ms, T_pred)}
+    for label, outs in graphed.items():
+        T_e, n_e = step.fn(*args[label])
+        for i, (T, n) in enumerate(outs):
+            if not (torch.equal(T, T_e) and torch.equal(n, n_e)):
+                bad.append(f"{label}: graphed call {i} differs from the "
+                           f"eager step (T by {(T - T_e).abs().max():.2e}, "
+                           f"inliers {int(n)} / {int(n_e)})")
+    (T_x, n_x), (T_r, n_r) = graphed["example"][-1], graphed["rendered"][-1]
+    if not (torch.equal(T_x, torch.eye(4, device=device)) and int(n_x) == 0):
+        bad.append(f"example arguments: {int(n_x)} inliers, T not the "
+                   f"prediction")
+    import torch.utils._pytree as pytree
+    step_cpu, _ = tentry.entry("cpu")
+    T_c, n_c = step_cpu(*pytree.tree_map_only(torch.Tensor, torch.Tensor.cpu,
+                                              (img, ms, T_pred)))
+    gap = float((T_r.cpu() - T_c).abs().max())
+    t_err = float(np.linalg.norm(T_r.cpu().numpy()[:3, 3] - T_gt[:3, 3]))
+    if not (gap <= ENTRY_T_TOL and abs(int(n_r) - int(n_c)) <= ENTRY_INLIERS
+            and int(n_r) >= MIN_INLIERS):
+        bad.append(f"rendered frame: {int(n_r)} inliers on the card, "
+                   f"{int(n_c)} on the CPU, T within {gap:.2e}")
+    from plslam_tpu_torch.models import tracking
+    recorder = K1Recorder(gm)
+    recorder.on, tracking.gated_match = True, recorder
+    try:
+        step.fn(img, ms, T_pred)
+    finally:
+        tracking.gated_match = gm
+    if len(recorder.calls) != len(TRACKING_SEARCHES):
+        bad.append(f"recorded {len(recorder.calls)} of K1's calls in one "
+                   f"step, expected {len(TRACKING_SEARCHES)}")
+    for label, (a, gated) in zip(TRACKING_SEARCHES, recorder.calls):
+        n, p = a["q_bits"].shape[0], a["d_bits"].shape[0]
+        timing[f"entry, {label}"] = check_case(
+            gm, f"real call, entry, {label}: N={n} P={p} gated={gated}", a,
+            gated)
+    q = lambda x, p: 1e3 * float(np.percentile(x, p))
+    print(f"entry: graphed step bit-equal to the eager one on the example "
+          f"arguments ({int(n_x)} inliers, T the prediction) and on a "
+          f"rendered 240x320 frame ({int(n_r)} inliers; the port on the "
+          f"CPU {int(n_c)}, T within {gap:.2e}; translation {t_err:.4f} m "
+          f"from the ground truth)")
+    print(f"entry: step host ms median {q(host, 50):.2f} p90 {q(host, 90):.2f}"
+          f" over {ENTRY_REPLAYS} replays, device ms inside the graph median "
+          f"{np.median(dev_ms):.2f} p90 {np.percentile(dev_ms, 90):.2f}; "
+          f"{g.captures} captures ({g.capture_s:.2f} s), {g.replays} "
+          f"replays, K1 launches {launches['entry']}; card {card_line()}; "
+          f"phase {time.perf_counter() - t_phase:.1f} s")
+    if bad:
+        fail("entry: " + "; ".join(bad))
 
 
 def check_slice() -> int:

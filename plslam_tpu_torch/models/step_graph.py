@@ -32,12 +32,17 @@ wraps `fn(*args, **kwargs)`:
   registered with `counted` grow on replay by the launches its capture
   recorded, and the capture itself counts none.
 
+A capture runs with automatic garbage collection off: a graph destroyed
+during another's capture (an earlier System's, freed by the cyclic
+collector) would invalidate it.
+
 On the CPU, or with `enabled=False`, the step calls `fn` directly. On CUDA a
 failed capture or replay raises: nothing falls back to eager execution.
 """
 from __future__ import annotations
 
 import dataclasses
+import gc
 import time
 
 import torch
@@ -181,10 +186,18 @@ class StepGraph:
         args, kwargs = rebuild(leaves, spec, static_in, ms)
         counts = [fn.launches for fn in COUNTED]
         graph = torch.cuda.CUDAGraph()
+        # A graph destroyed while another is captured invalidates that
+        # capture. An earlier System's graphs sit in reference cycles that
+        # only the cyclic collector frees: let no automatic collection run
+        # during the capture.
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             with torch.cuda.graph(graph, pool=g._capture_pool()):
                 static_out = self.fn(*args, **kwargs)
         finally:
+            if collecting:
+                gc.enable()
             recorded = tuple(fn.launches - c for fn, c in zip(COUNTED, counts))
             for fn, c in zip(COUNTED, counts):
                 fn.launches = c

@@ -36,6 +36,7 @@ import time
 import numpy as np
 import torch
 
+from ..entry import _build, random_point_map
 from ..geometry import camera, se3
 from ..mapstate import state as mstate
 from ..models import mapping, tracking
@@ -46,37 +47,8 @@ from .mesh import spawn
 from .multistream import BatchedTracker
 
 
-def _build(device, n_feats=512, n_levels=3, max_pt=2048, max_kf=8, h=240,
-           w=320):
-    """The dry run's camera, extractor, map capacities and level scales
-    (`__graft_entry__._build`)."""
-    cam = camera.Camera.create(fx=250.0, fy=250.0, cx=w / 2, cy=h / 2,
-                               width=w, height=h)
-    ext_cfg = extract.ExtractorConfig(n_features=n_feats, n_levels=n_levels)
-    map_cfg = mstate.MapConfig(max_kf=max_kf, max_pt=max_pt, max_ln=64,
-                               n_kp=n_feats, n_lf=32, n_levels=n_levels)
-    sf, s2 = extract.scale_factors(ext_cfg, device)
-    return cam, ext_cfg, map_cfg, sf, s2
-
-
 def _t(x, device, dtype=None):
     return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
-
-
-def random_point_map(map_cfg, rng, device):
-    """A map of `max_pt` valid random points 3-8 m ahead, no keyframe (the
-    dry run's and tests/test_parallel.py's tracking maps)."""
-    P = map_cfg.max_pt
-    pts = rng.uniform(-2, 2, (P, 3)).astype(np.float32)
-    pts[:, 2] = rng.uniform(3, 8, P)
-    ms = mstate.allocate(map_cfg, device)
-    ms.pt_xyz.copy_(_t(pts, device))
-    ms.pt_valid.fill_(True)
-    ms.pt_max_dist.fill_(10.0)
-    ms.pt_min_dist.fill_(0.5)
-    ms.pt_normal.copy_(_t(-pts / np.maximum(
-        np.linalg.norm(pts, axis=-1, keepdims=True), 1e-6), device))
-    return ms
 
 
 def _dryrun_rank(mesh):

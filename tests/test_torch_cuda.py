@@ -304,6 +304,72 @@ def test_graphed_system_counts_k1_replays():
 
 
 @pytest.mark.cuda
+def test_entry_step_never_waits_and_its_graph_matches_eager():
+    """`entry()`'s step on its example arguments: eager under sync debug
+    mode "error" (no op waits for the device), then graphed: one capture
+    and one replay, each bit-equal to the eager step, 3 K1 launches per
+    call (the capture's warm-up counts, the capture does not)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: CUDA graphs and the kernel")
+    from plslam_tpu_torch import entry
+    step, args = entry.entry()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        T_e, n_e = step.fn(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    before = gated_match.gated_hamming_best2.launches
+    outs = [step(*args) for _ in range(2)]
+    assert gated_match.gated_hamming_best2.launches - before == 6
+    assert (step.graphs.captures, step.graphs.replays) == (1, 1)
+    for T, n in outs:
+        assert torch.equal(T, T_e) and torch.equal(n, n_e)
+
+
+@pytest.mark.cuda
+def test_a_capture_survives_a_collection_of_dead_graphs():
+    """An earlier `StepGraphs`' graphs, held in a reference cycle (a step
+    and its `StepGraphs` point at each other, as a System's bound methods
+    point at it), are freed only by the cyclic collector. A collection
+    during another step's capture would destroy them mid-capture and
+    invalidate it: the capture holds automatic collection off. Here the
+    captured step allocates enough cyclic garbage to start automatic
+    collections, and none may run while the stream captures."""
+    import gc
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: CUDA graphs")
+    from plslam_tpu_torch.models.step_graph import StepGraphs
+    x = torch.ones(8, device="cuda")
+    old = StepGraphs("cuda").step(lambda t: t * 2)
+    old(x), old(x)                       # a capture and a replay
+    assert old.graphs.captures == 1
+    del old                              # left to the cyclic collector
+    during = []
+
+    def seen(phase, info):
+        if phase == "start" and torch.cuda.is_current_stream_capturing():
+            during.append(info["generation"])
+
+    def fn(t):
+        if torch.cuda.is_current_stream_capturing():
+            for _ in range(20 * gc.get_threshold()[0]):
+                a = []
+                a.append(a)
+        return t + 1
+    gc.callbacks.append(seen)
+    try:
+        step = StepGraphs("cuda").step(fn)
+        for _ in range(2):               # the capture, then a replay
+            assert torch.equal(step(x), x + 1)
+    finally:
+        gc.callbacks.remove(seen)
+    assert (step.graphs.captures, step.graphs.replays) == (1, 1)
+    assert during == [], f"collections during the capture: {during}"
+    assert gc.isenabled()
+
+
+@pytest.mark.cuda
 def test_a_failed_capture_raises():
     """A step that waits for the device cannot be captured: the capture
     raises, and nothing falls back to eager execution."""

@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: importing every one of its modules, and the
-scripts that drive it on the card, pulls in neither jax nor plslam_tpu."""
+scripts and card tests that drive it on the card, pulls in neither jax nor
+plslam_tpu."""
 import os
 import subprocess
 import sys
@@ -15,7 +16,8 @@ def _port_modules():
         rel = path.relative_to(ROOT).with_suffix("")
         parts = rel.parts[:-1] if rel.name == "__init__" else rel.parts
         mods.append(".".join(parts))
-    return mods + ["chip_smoke", "profile_torch_step", "compare_torch_slice"]
+    return mods + ["chip_smoke", "profile_torch_step", "compare_torch_slice",
+                   "test_torch_gates", "torch_gate_fixtures"]
 
 
 def test_port_imports_no_jax():
@@ -28,7 +30,8 @@ def test_port_imports_no_jax():
             "             if m.split('.')[0] in ('jax', 'jaxlib', 'plslam_tpu'))\n"
             "assert not bad, bad\n"
             "print(len(" + repr(mods) + "))\n")
-    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT), str(ROOT / "tests")]))
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
