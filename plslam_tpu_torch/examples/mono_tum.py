@@ -2,7 +2,7 @@
 
 Usage:
   python -m plslam_tpu_torch.examples.mono_tum <settings.yaml> <sequence_dir>
-      [out_traj.txt] [--chunked B] [--device D]
+      [out_traj.txt] [--chunked B] [--device D] [--trace PATH]
 
 Twin of the JAX package's `examples/mono_tum.py`. Frames are decoded by the
 port's prefetching loader (`utils/native_loader.py`: native C++ threads, or
@@ -13,7 +13,11 @@ device per `System.track_chunked` call, two chunks staged ahead (keyframe
 decisions one chunk late). It prints the median and mean tracking time and
 the end-to-end rate, and writes the trajectory (TUM format, default
 `CameraTrajectory.txt`), `KeyFrameTrajectory.txt` and `mono_tum_stats.json`
-into the working directory.
+into the working directory. `--trace PATH` turns the System's host spans on
+and writes its tracer's logs to PATH as a Chrome trace (Perfetto reads it):
+the host spans and the device spans on one timeline, the keyframe chain,
+loop closing and global-BA rounds among them (the rings keep the last
+65,536 records and spans).
 """
 import json
 import sys
@@ -35,7 +39,7 @@ def _upload(host: np.ndarray, device: torch.device) -> torch.Tensor:
 
 
 def main(argv=None) -> int:
-    args = parse_args(argv, 2, ("--chunked", "--device"))
+    args = parse_args(argv, 2, ("--chunked", "--device", "--trace"))
     if args is None:
         print(__doc__)
         return 1
@@ -48,6 +52,8 @@ def main(argv=None) -> int:
 
     slam = make_system(settings, opts.get("--device", "cuda"))
     device = slam.device
+    if "--trace" in opts:
+        slam.tracer.enable()
     tss, paths = tum.load_rgb_index(seq_dir)
     loader = PrefetchLoader(paths, queue_depth=8, n_threads=2)
     t_all0 = time.perf_counter()
@@ -93,6 +99,9 @@ def main(argv=None) -> int:
     slam.save_trajectory_tum(out)
     slam.save_keyframe_trajectory_tum("KeyFrameTrajectory.txt")
     print(f"trajectory saved to {out}")
+    if "--trace" in opts:
+        n = slam.tracer.export(opts["--trace"])
+        print(f"trace of {n} events saved to {opts['--trace']}")
     times = sorted(times)
     with open("mono_tum_stats.json", "w") as f:
         json.dump({

@@ -31,6 +31,7 @@ from ..mapstate import state as mstate
 from ..ops import gated_match, hamming
 from ..optim import pose_graph, sim3_opt
 from ..solvers import horn
+from ..utils.trace import no_span
 from ..vocab import bow
 from . import mapping
 from .tracking import _row, _top
@@ -55,7 +56,11 @@ def _to_host_async(*tensors):
 
 class LoopClosing:
     """Loop detection and correction for one map. `map_cfg` holds the map's
-    capacities (the System replaces it when the map grows)."""
+    capacities (the System replaces it when the map grows). `span` gives
+    the host spans `loop_detect`, `sim3_stage` and `loop_correct`
+    (`utils/trace.py`; the System sets its tracer's)."""
+
+    span = staticmethod(no_span)
 
     def __init__(self, cam, map_cfg, sigma2_levels, fix_scale: bool = False,
                  max_drift_rot: float = 0.8):
@@ -292,8 +297,9 @@ class LoopClosing:
         pending, self._pending_detect = self._pending_detect, None
         if pending is None:
             return ms, False
-        return self._try_close(ms, pending[0], self._consistency(pending),
-                               seed)
+        with self.span("loop_detect"):
+            candidates = self._consistency(pending)
+        return self._try_close(ms, pending[0], candidates, seed)
 
     # ------------------------------------------------------------------
     def _search_fuse(self, ms, k: int, c: int):
@@ -313,7 +319,9 @@ class LoopClosing:
         """A loop-closing attempt at keyframe k. Returns (ms, closed); on a
         closure the correction and search-and-fuse have run and the caller
         schedules the global BA."""
-        return self._try_close(ms, k, self.detect(ms, k), seed)
+        with self.span("loop_detect"):
+            candidates = self.detect(ms, k)
+        return self._try_close(ms, k, candidates, seed)
 
     def _try_close(self, ms, k: int, candidates, seed: int = 0):
         K_now = self.map_cfg.max_kf
@@ -321,9 +329,10 @@ class LoopClosing:
             # resolved one keyframe late: pad if the map grew in between
             group_row = np.pad(group_row, (0, K_now - len(group_row)))
             gen = torch.Generator().manual_seed(seed + self.n_loops)
-            n_matches, n_seed, S12, n_inl = self._sim3_stage(
-                ms, pk, c, torch.from_numpy(group_row).to(ms.pt_xyz.device),
-                gen)
+            with self.span("sim3_stage"):
+                n_matches, n_seed, S12, n_inl = self._sim3_stage(
+                    ms, pk, c,
+                    torch.from_numpy(group_row).to(ms.pt_xyz.device), gen)
             # >= 20 LM inliers and >= 40 matches after SearchBySim3, with a
             # 12-inlier floor on the RANSAC consensus (the JAX package
             # documents why the reference's counts move after refinement)
@@ -333,9 +342,10 @@ class LoopClosing:
                 continue
             self.pre_correction_kf_T = ms.kf_T.cpu().clone().numpy()
             self.last_closure = (pk, c)
-            ms = self.correct(ms, pk, c, S12)
-            self.post_correction_kf_T = ms.kf_T.cpu().clone().numpy()
-            ms = self._search_fuse(ms, k, c)
+            with self.span("loop_correct"):
+                ms = self.correct(ms, pk, c, S12)
+                self.post_correction_kf_T = ms.kf_T.cpu().clone().numpy()
+                ms = self._search_fuse(ms, k, c)
             self.last_loop_kf = k
             self.n_loops += 1
             return ms, True

@@ -32,6 +32,7 @@ from ..ops import hamming, stereo
 from ..ops.extract import PointFeatures
 from ..ops.lines import LineFeatures, _angle_diff
 from ..optim import local_ba
+from ..utils.trace import no_span
 from ..vocab import bow
 from .tracking import _bitmap, _pixels, _row, _top
 
@@ -997,7 +998,7 @@ def process_keyframe(cam, ms: MapState, feats, lfeats, T, matched_pt,
                      desc_majority: bool = False, bf: float = 0.0,
                      tri_covis: bool = False, tri_covis_k: int = 3,
                      sin_covis: bool = False, sin_whole_map: bool = False,
-                     sin_reverse_n: int = 2) -> MapState:
+                     sin_reverse_n: int = 2, span=no_span) -> MapState:
     """The keyframe chain, in place: insert -> triangulate new points
     against up to `tri_covis_k` + 1 partners -> (triangulate new lines
     against 3 partners -> fuse duplicate lines) -> (with `use_depth`, points
@@ -1015,7 +1016,8 @@ def process_keyframe(cam, ms: MapState, feats, lfeats, T, matched_pt,
     and 3 keyframes back, each with 3-view support in the keyframe behind
     it where that exists, and duplicate lines fuse. A partner that does not
     exist masks its creation instead of branching, so nothing waits for the
-    device; `use_depth` is a Python bool."""
+    device; `use_depth` is a Python bool. `span` gives the tracer's host
+    span around local BA (`utils/trace.py`)."""
     k_new = ms.n_kf.to(torch.long)         # a copy: insert bumps n_kf
     insert_keyframe(cam, ms, feats, T, matched_pt, frame_id, scale_factors,
                     lfeats=lfeats, matched_ln=matched_ln,
@@ -1060,8 +1062,9 @@ def process_keyframe(cam, ms: MapState, feats, lfeats, T, matched_pt,
     # erase the worse row before BA reads the observations
     dedup_kf_point_rows(cam, ms)
     ms.pt_n_obs.copy_(_refresh_n_obs(ms))
-    run_local_ba(cam, ms, sigma2_levels, window=window, p_ba=p_ba,
-                 l_ba=l_ba, iters_a=4, iters_b=8,
-                 use_stereo=bool(use_depth) and bf > 0, bf=bf)
+    with span("local_ba"):
+        run_local_ba(cam, ms, sigma2_levels, window=window, p_ba=p_ba,
+                     l_ba=l_ba, iters_a=4, iters_b=8,
+                     use_stereo=bool(use_depth) and bf > 0, bf=bf)
     cull_points(ms, k_new)
     return cull_keyframes(ms, k_new, enabled=do_kf_cull)

@@ -28,9 +28,13 @@ wraps `fn(*args, **kwargs)`:
   a later graph may hold its temporaries where an earlier one keeps its
   outputs, and they are valid until any graph of this `StepGraphs` replays.
 - **Counts.** `captures`, the host seconds they took (`capture_s`, the
-  eager warm-up included) and `replays`; the `launches` of each wrapper
-  registered with `counted` grow on replay by the launches its capture
-  recorded, and the capture itself counts none.
+  eager warm-up included) and `replays`; the `launches` of each object
+  registered with `counted` (a kernel wrapper, a System's tracer, whose
+  device stamps are launches too) grow on replay by the launches its
+  capture recorded, and the capture itself counts none.
+- **Spans.** `StepGraphs(device, span=tracer.span)` puts the host spans
+  `replay` around each replay and `capture` around each capture
+  (`utils/trace.py`); without `span` there are none.
 
 A capture runs with automatic garbage collection off: a graph destroyed
 during another's capture (an earlier System's, freed by the cyclic
@@ -41,25 +45,31 @@ failed capture or replay raises: nothing falls back to eager execution.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import time
+import weakref
 
 import torch
 import torch.utils._pytree as pytree
 
-# the kernel wrappers whose `launches` count their kernel's launches
-COUNTED: list = []
+# the objects whose `launches` count their kernels' launches; held weakly,
+# so that a System's tracer goes with its System
+COUNTED = weakref.WeakSet()
 
 
 def counted(fn):
-    """Registers the wrapper `fn`, whose `launches` attribute (set to 0
-    here) it raises by one per kernel launch: a replay adds the launches
-    its capture recorded."""
+    """Registers `fn`, whose `launches` attribute (set to 0 here) it raises
+    by one per kernel launch: a replay adds the launches its capture
+    recorded."""
     fn.launches = 0
-    if fn not in COUNTED:
-        COUNTED.append(fn)
+    COUNTED.add(fn)
     return fn
+
+
+def _no_span(name):
+    return contextlib.nullcontext()
 
 
 _BOUND = object()   # stands in for the bound map among the arguments
@@ -101,15 +111,16 @@ class _Entry:
     graph: torch.cuda.CUDAGraph
     static_in: list
     static_out: object
-    recorded: tuple      # launches per counted kernel in one replay
+    recorded: dict       # launches of each counted object in one replay
 
 
 class StepGraphs:
     """The CUDA graphs of one System's steps: one memory pool, the counts of
     captures and replays. Disabled off CUDA."""
 
-    def __init__(self, device, enabled: bool = True):
+    def __init__(self, device, enabled: bool = True, span=None):
         self.device = torch.device(device)
+        self.span = _no_span if span is None else span
         self.enabled = bool(enabled) and self.device.type == "cuda"
         self.captures = 0
         self.capture_s = 0.0
@@ -161,10 +172,11 @@ class StepGraph:
         entry = self._entries.get(key)
         if entry is None:
             return self._capture(key, leaves, spec, tensors, ms, clone)
-        for dst, src in zip(entry.static_in, tensors):
-            dst.copy_(src)
-        entry.graph.replay()
-        for fn, n in zip(COUNTED, entry.recorded):
+        with g.span("replay"):
+            for dst, src in zip(entry.static_in, tensors):
+                dst.copy_(src)
+            entry.graph.replay()
+        for fn, n in entry.recorded.items():
             fn.launches += n
         g.replays += 1
         return pytree.tree_map_only(torch.Tensor, torch.clone,
@@ -172,6 +184,10 @@ class StepGraph:
             else entry.static_out
 
     def _capture(self, key, leaves, spec, tensors, ms, clone: bool):
+        with self.graphs.span("capture"):
+            return self._capture_impl(key, leaves, spec, tensors, ms, clone)
+
+    def _capture_impl(self, key, leaves, spec, tensors, ms, clone: bool):
         t0 = time.perf_counter()
         g = self.graphs
         side = g._side_stream()
@@ -184,7 +200,7 @@ class StepGraph:
         cur.wait_stream(side)
         static_in = [t.clone() for t in tensors]
         args, kwargs = rebuild(leaves, spec, static_in, ms)
-        counts = [fn.launches for fn in COUNTED]
+        counts = {fn: fn.launches for fn in COUNTED}
         graph = torch.cuda.CUDAGraph()
         # A graph destroyed while another is captured invalidates that
         # capture. An earlier System's graphs sit in reference cycles that
@@ -198,8 +214,9 @@ class StepGraph:
         finally:
             if collecting:
                 gc.enable()
-            recorded = tuple(fn.launches - c for fn, c in zip(COUNTED, counts))
-            for fn, c in zip(COUNTED, counts):
+            recorded = {fn: fn.launches - c for fn, c in counts.items()
+                        if fn.launches != c}
+            for fn, c in counts.items():
                 fn.launches = c
         self._entries[key] = _Entry(graph, static_in, static_out, recorded)
         if not clone:

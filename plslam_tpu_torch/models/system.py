@@ -50,9 +50,8 @@ keyframe chain never wait.
 """
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass
-from functools import partial
+from functools import partial, wraps
 from types import SimpleNamespace
 from typing import Optional
 
@@ -67,6 +66,7 @@ from ..models.loop_closing import LoopClosing, _to_host_async
 from ..ops import extract, lines, stereo
 from ..optim import local_ba
 from ..solvers import twoview
+from ..utils import trace
 
 
 @dataclass
@@ -210,6 +210,18 @@ NOT_INITIALIZED = "NOT_INITIALIZED"
 OK = "OK"
 LOST = "LOST"
 
+
+def _spanned(name: str):
+    """The method inside the System's host span `name`."""
+    def wrap(method):
+        @wraps(method)
+        def run(self, *args, **kwargs):
+            with self.tracer.span(name):
+                return method(self, *args, **kwargs)
+        return run
+    return wrap
+
+
 class System:
     """Point-and-line SLAM on one device, `cuda` unless `device` names
     another (the CPU runs the kernels' plain versions). Public surface as
@@ -220,7 +232,22 @@ class System:
     toggles and the map I/O (`save_map`, `load_map`, `save_point_cloud`).
     On CUDA the per-frame steps replay as CUDA graphs unless
     `use_graphs` is False (the JAX package's `use_jit`); `graphs` holds
-    their counts."""
+    their counts.
+
+    `tracer` (`utils/trace.py`) stamps the device at the frame step's stage
+    boundaries, always, and with `tracer.enable()` records host spans at
+    the layer boundaries: `frame` (each `track_*` call), `upload`, `replay`,
+    `capture`, `wait` (a decision readback), `resolve`, `keyframe`,
+    `local_ba`, `loop_detect`, `sim3_stage`, `loop_correct`, `gba_round`,
+    `relocalize`, `initialize` and `grow`.
+
+    `timings` holds one host time per frame in seconds, from the `frame`
+    span: in `track_synced`, hand-in to the pose with the frame's decisions
+    resolved (its upload and readback included); in `track_monocular`,
+    `track_rgbd` and `track_stereo`, the call (the step enqueued, the
+    decisions read back at once unless `async_pipeline` defers them); in
+    `track_chunked`, the call over its B frames, split evenly (the chunk
+    enqueued, the previous chunk's decisions resolved)."""
 
     def __init__(self, config: Optional[SLAMConfig] = None, device=None,
                  use_graphs: bool = True):
@@ -271,12 +298,15 @@ class System:
         # it, for example); the per-frame steps are graphed, and a wrapper
         # that synchronizes goes around them, never inside
         cam = self.cam
+        self.tracer = trace.Tracer(self.device)
         self._track_impl = partial(
             _track_and_update, cam, scale_factors=self.scale_factors,
             sigma2_levels=self.sigma2, n_levels=c.n_levels,
             scale=c.scale_factor, line_info=c.track_line_info,
-            max_step_t=c.max_step_t, max_step_r=c.max_step_r)
-        self.graphs = step_graph.StepGraphs(self.device, enabled=use_graphs)
+            max_step_t=c.max_step_t, max_step_r=c.max_step_r,
+            stamp=self.tracer.stamp)
+        self.graphs = step_graph.StepGraphs(self.device, enabled=use_graphs,
+                                            span=self.tracer.span)
         self._extract_step = self.graphs.step(self._extract_impl)
         self._track_update = self.graphs.step(self._track_impl, bound=0)
         self._frame_step = self.graphs.step(self._frame_impl, bound=0)
@@ -298,7 +328,7 @@ class System:
             bf=self._bf, desc_majority=c.desc_majority,
             tri_covis=c.tri_covis, tri_covis_k=c.tri_covis_k,
             sin_covis=c.sin_covis, sin_whole_map=c.sin_whole_map,
-            sin_reverse_n=c.sin_reverse_n)
+            sin_reverse_n=c.sin_reverse_n, span=self.tracer.span)
         self._relocalize = partial(
             tracking.relocalize, cam, sigma2_levels=self.sigma2,
             scale_factors=self.scale_factors, n_levels=c.n_levels,
@@ -315,6 +345,8 @@ class System:
             cam, self.map_cfg, self.sigma2, fix_scale=c.sensor != "mono",
             max_drift_rot=c.loop_max_drift_rot) if c.use_loop_closing \
             else None
+        if self.loop_closer is not None:
+            self.loop_closer.span = self.tracer.span
         self.reset()
 
     # ------------------------------------------------------------------
@@ -351,7 +383,7 @@ class System:
         # (timestamp, T_rel (4,4) tensor or array | None, ref kf, lost)
         self._traj: list[tuple] = []
         self.kf_timestamps: list[float] = []
-        self.timings: list[float] = []
+        self.timings: list[float] = []   # per frame (class docstring)
         self.stats: list[dict] = []
 
     def _image(self, img):
@@ -362,9 +394,10 @@ class System:
             img = torch.from_numpy(np.asarray(img).astype(np.uint8))
         if img.device == self.device or self.device.type != "cuda":
             return img.to(self.device)
-        host = torch.empty(img.shape, dtype=img.dtype, pin_memory=True)
-        host.copy_(img)
-        return host.to(self.device, non_blocking=True)
+        with self.tracer.span("upload"):
+            host = torch.empty(img.shape, dtype=img.dtype, pin_memory=True)
+            host.copy_(img)
+            return host.to(self.device, non_blocking=True)
 
     def _extract(self, img, with_lines: bool = True):
         """(point features with undistorted keypoints, line features with
@@ -373,18 +406,26 @@ class System:
         return self._extract_step(self._image(img), with_lines=with_lines)
 
     def _extract_impl(self, img, with_lines: bool = True):
+        stamp = self.tracer.stamp
+        stamp("extract.points")
         img = img.to(torch.float32)
         f = self.extractor(img)
         f = f._replace(uv_un=camera.undistort_pixels(self.cam, f.uv))
-        return f, self._detect_lines(img) if self.cfg.use_lines \
-            and with_lines else None
+        lf = None
+        if self.cfg.use_lines and with_lines:
+            stamp("extract.lines")
+            lf = self._detect_lines(img)
+        stamp("extract", end=True)
+        return f, lf
 
     def _frame_impl(self, ms, img, T_last, velocity, anchor_kf):
         """Extraction and tracking of one frame: (TrackResult, point
         features, line features or None)."""
+        self.tracer.stamp("frame")
         feats, lfeats = self._extract_impl(img)
         res = self._track_impl(ms, feats, T_last, lfeats=lfeats,
                                velocity=velocity, anchor_kf=anchor_kf)
+        self.tracer.stamp("frame", end=True)
         return res, feats, lfeats
 
     def _detect_lines(self, img):
@@ -401,14 +442,13 @@ class System:
         """Process one grayscale frame (H, W) (numpy or tensor); returns
         the (4,4) camera pose Tcw on the System's device, or None while
         not initialized (and on an auto-reset)."""
-        t0 = time.perf_counter()
-        self.frame_id += 1
-        feats, lfeats = self._extract(img)
-        if self.state == NOT_INITIALIZED:
-            T = self._try_initialize(feats, lfeats, timestamp)
-        else:
-            T = self._track_frame(feats, lfeats, timestamp)
-        self.timings.append(time.perf_counter() - t0)
+        with self.tracer.frame(self.frame_id + 1, self.timings):
+            self.frame_id += 1
+            feats, lfeats = self._extract(img)
+            if self.state == NOT_INITIALIZED:
+                T = self._try_initialize(feats, lfeats, timestamp)
+            else:
+                T = self._track_frame(feats, lfeats, timestamp)
         return T
 
     def track_synced(self, img, timestamp: float):
@@ -419,11 +459,9 @@ class System:
         `track_monocular`."""
         if self.state != OK:
             return self.track_monocular(img, timestamp)
-        t0 = time.perf_counter()
-        out = self.track_chunked(self._image(img)[None], [timestamp])
-        self._resolve_chunks(keep=0)
-        if self.timings:
-            self.timings[-1] = time.perf_counter() - t0
+        with self.tracer.frame(self.frame_id + 1, self.timings):
+            out = self.track_chunked(self._image(img)[None], [timestamp])
+            self._resolve_chunks(keep=0)
         return out[0]
 
     def track_chunked(self, imgs, timestamps):
@@ -442,36 +480,37 @@ class System:
         if self.state != OK:
             return [self.track_monocular(imgs[j], timestamps[j])
                     for j in range(B)]
-        imgs = self._image(imgs)
-        t0 = time.perf_counter()
         ids = [self.frame_id + 1 + j for j in range(B)]
-        self.frame_id += B
-        Ts, T_rels, scalars, m_pt, m_ln, feats_s, lfeats_s = \
-            self._track_chunk(imgs)
-        self._step_gba()
-        ref = self.n_kf_host - 1
-        traj_start = len(self._traj)
-        for j, ts in enumerate(timestamps):
-            self._log_frame(ts, T_rels[j], ref)
-        self._chunk_pending.append(
-            (_to_host_async(scalars), Ts, m_pt, m_ln, feats_s, lfeats_s,
-             list(timestamps), ids, traj_start))
-        if len(self._chunk_pending) > 1:
-            self._resolve_chunks(keep=1)
-        dt = (time.perf_counter() - t0) / B
-        self.timings.extend([dt] * B)
+        with self.tracer.frame(ids[0], self.timings, B):
+            imgs = self._image(imgs)
+            self.frame_id += B
+            Ts, T_rels, scalars, m_pt, m_ln, feats_s, lfeats_s = \
+                self._track_chunk(imgs, ids)
+            self._step_gba()
+            ref = self.n_kf_host - 1
+            traj_start = len(self._traj)
+            for j, ts in enumerate(timestamps):
+                self._log_frame(ts, T_rels[j], ref)
+            self._chunk_pending.append(
+                (_to_host_async(scalars), Ts, m_pt, m_ln, feats_s, lfeats_s,
+                 list(timestamps), ids, traj_start))
+            if len(self._chunk_pending) > 1:
+                self._resolve_chunks(keep=1)
         return Ts
 
-    def _track_chunk(self, imgs):
-        """The chunk's frames through `_frame_step`, each replay's outputs
-        copied into the chunk's stacks before the next: (Ts, T_rels,
-        scalars, matched_pt, matched_ln, point features, line features),
-        each stacked over the B frames. Sets T_last and the velocity to
-        the last frame's."""
+    def _track_chunk(self, imgs, ids=None):
+        """The chunk's frames (with `ids`, the tracer's frame ids of each)
+        through `_frame_step`, each replay's outputs copied into the
+        chunk's stacks before the next:
+        (Ts, T_rels, scalars, matched_pt, matched_ln, point features, line
+        features), each stacked over the B frames. Sets T_last and the
+        velocity to the last frame's."""
         B = int(imgs.shape[0])
         T, vel, anchor = self.T_last, self.velocity, self._anchor_arg()
         stacks = None
         for j in range(B):
+            if ids is not None:
+                self.tracer.set_frame(ids[j])
             res, f, lf = self._frame_step(self.ms, imgs[j], T, vel, anchor,
                                           clone=False)
             out = (res.T, res.T_rel, res.scalars, res.matched_pt,
@@ -494,10 +533,12 @@ class System:
             (((host,), event), Ts, m_pt, m_ln, feats_s, lfeats_s, tss, ids,
              traj_start) = self._chunk_pending.pop(0)
             if event is not None:
-                event.synchronize()
+                with self.tracer.span("wait"):
+                    event.synchronize()
             saved_fid = self.frame_id
             for j, row in enumerate(host.tolist()):
                 self.frame_id = ids[j]
+                self.tracer.set_frame(ids[j])
                 pick = partial(pytree.tree_map_only, torch.Tensor,
                                lambda t, j=j: t[j])
                 res_j = SimpleNamespace(T=Ts[j], matched_pt=m_pt[j],
@@ -513,17 +554,16 @@ class System:
         Metric depth initializes on the first frame with enough keypoints
         and creates landmarks directly. Returns the (4,4) pose Tcw on the
         System's device, or None while not initialized."""
-        t0 = time.perf_counter()
-        self.frame_id += 1
-        self._ensure_depth_sensor("rgbd")
-        if not torch.is_tensor(depth):
-            depth = torch.from_numpy(np.asarray(depth, dtype=np.float32))
-        depth = depth.to(self.device).to(torch.float32) \
-            / self.cfg.depth_map_factor
-        feats, lfeats = self._extract(img)
-        self._set_depth(feats, self._depth_at(depth, feats.uv))
-        T = self._track_depth_frame(feats, lfeats, timestamp)
-        self.timings.append(time.perf_counter() - t0)
+        with self.tracer.frame(self.frame_id + 1, self.timings):
+            self.frame_id += 1
+            self._ensure_depth_sensor("rgbd")
+            if not torch.is_tensor(depth):
+                depth = torch.from_numpy(np.asarray(depth, dtype=np.float32))
+            depth = depth.to(self.device).to(torch.float32) \
+                / self.cfg.depth_map_factor
+            feats, lfeats = self._extract(img)
+            self._set_depth(feats, self._depth_at(depth, feats.uv))
+            T = self._track_depth_frame(feats, lfeats, timestamp)
         return T
 
     def track_stereo(self, img_left, img_right, timestamp: float):
@@ -531,18 +571,17 @@ class System:
         comes from `stereo.stereo_match` against the right image's
         keypoints (points only: the JAX package's right-image lines are
         discarded unused). Returns as `track_rgbd`."""
-        t0 = time.perf_counter()
-        self.frame_id += 1
-        self._ensure_depth_sensor("stereo")
-        im_l, im_r = self._image(img_left), self._image(img_right)
-        feats, lfeats = self._extract(im_l)
-        feats_r, _ = self._extract(im_r, with_lines=False)
-        d, _, ok = self._stereo_match(feats, feats_r,
-                                      im_l.to(torch.float32),
-                                      im_r.to(torch.float32))
-        self._set_depth(feats, torch.where(ok, d, -1.0))
-        T = self._track_depth_frame(feats, lfeats, timestamp)
-        self.timings.append(time.perf_counter() - t0)
+        with self.tracer.frame(self.frame_id + 1, self.timings):
+            self.frame_id += 1
+            self._ensure_depth_sensor("stereo")
+            im_l, im_r = self._image(img_left), self._image(img_right)
+            feats, lfeats = self._extract(im_l)
+            feats_r, _ = self._extract(im_r, with_lines=False)
+            d, _, ok = self._stereo_match(feats, feats_r,
+                                          im_l.to(torch.float32),
+                                          im_r.to(torch.float32))
+            self._set_depth(feats, torch.where(ok, d, -1.0))
+            T = self._track_depth_frame(feats, lfeats, timestamp)
         return T
 
     def _set_depth(self, feats, kp_depth):
@@ -565,6 +604,7 @@ class System:
             if self.loop_closer is not None:
                 self.loop_closer.fix_scale = True
 
+    @_spanned("initialize")
     def _initialize_with_depth(self, feats, lfeats, timestamp):
         """`Tracking::StereoInitialization`: with >= 300 valid keypoints,
         one keyframe at the origin and landmarks straight from depth."""
@@ -593,6 +633,7 @@ class System:
         self._init_frame_id = self.frame_id
         self._init_ts = timestamp
 
+    @_spanned("initialize")
     def _try_initialize(self, feats, lfeats, timestamp):
         n_valid = int(feats.valid.sum())
         if self._init_feats is None or n_valid < self.cfg.min_init_matches:
@@ -659,7 +700,8 @@ class System:
             getattr(ms, name)[ids] = 2
         if self.cfg.use_lines:
             self._create_lines(ms, 1, 0)
-        self._local_ba(ms)
+        with self.tracer.span("local_ba"):
+            self._local_ba(ms)
 
         self.T_last = ms.kf_T[1].clone()
         self.velocity = torch.eye(4, device=self.device)
@@ -702,11 +744,13 @@ class System:
         kp_depth_now = self._kp_depth
         for res, feats, lfeats, timestamp, kp_depth, ((host,), event) in batch:
             if event is not None:
-                event.synchronize()
+                with self.tracer.span("wait"):
+                    event.synchronize()
             self._kp_depth = kp_depth
             self._resolve_frame(host.tolist(), res, feats, lfeats, timestamp)
         self._kp_depth = kp_depth_now
 
+    @_spanned("resolve")
     def _resolve_frame(self, row, res, feats, lfeats, timestamp,
                        traj_i: Optional[int] = None, pregate: bool = False):
         """One tracked frame's decisions from its six scalars `row`: LOST
@@ -749,6 +793,7 @@ class System:
                 (), self._anchor_kf, dtype=torch.long, device=self.device))
         return self._anchor_t[1]
 
+    @_spanned("relocalize")
     def _relocalize_frame(self, feats, timestamp):
         """A LOST frame: on a map of at most 5 keyframes (likely junk) the
         map resets; otherwise `relocalize` (minimal sets from a generator
@@ -816,6 +861,10 @@ class System:
         g = self._gba
         if g is None:
             return
+        with self.tracer.span("gba_round"):
+            self._gba_round(g)
+
+    def _gba_round(self, g):
         prob = g["sel"].prob
         g["st"] = local_ba.ba_rounds(prob, self.cam, g["st"], 3, robust=True)
         g["round"] += 1
@@ -876,7 +925,8 @@ class System:
         if (new_kf, new_pt, new_ln) == (c.max_kf, c.max_pt, c.max_ln):
             return
         self.map_cfg = c._replace(max_kf=new_kf, max_pt=new_pt, max_ln=new_ln)
-        self.ms = mstate.grow(self.ms, self.map_cfg)
+        with self.tracer.span("grow"):
+            self.ms = mstate.grow(self.ms, self.map_cfg)
         self.n_growths += 1
         if self.loop_closer is not None:
             self.loop_closer.map_cfg = self.map_cfg
@@ -906,6 +956,15 @@ class System:
         min_iv = 1 if use_depth else self.cfg.kf_min_interval
         if not (weak and n_inl > 15 and since >= min_iv):
             return False
+        with self.tracer.span("keyframe"):
+            self._keyframe_chain(feats, lfeats, res, timestamp, n_kf,
+                                 n_matched, use_depth)
+        return True
+
+    def _keyframe_chain(self, feats, lfeats, res, timestamp, n_kf: int,
+                        n_matched: int, use_depth: bool):
+        """The keyframe chain of a frame that makes a keyframe, loop
+        closing after it and the global BA it schedules."""
         self._process_kf(self.ms, feats, lfeats, res.T, res.matched_pt,
                          res.matched_ln, self.frame_id, self._kp_depth,
                          do_kf_cull=n_kf % 4 == 3, use_depth=use_depth)
@@ -926,7 +985,6 @@ class System:
         self.last_kf_frame = self.frame_id
         self.ref_kf_matches = n_matched
         self.kf_timestamps.append(timestamp)
-        return True
 
     # ------------------------------------------------------------------
     def shutdown(self):

@@ -222,7 +222,8 @@ def track_local_map(cam, ms: MapState, feats: PointFeatures, T_last,
                     line_info: float = 1.0, velocity=None,
                     vel_gamma: float = 0.8, update_stats: bool = False,
                     anchor_kf=None, kp_ur=None, bf: float = 0.0,
-                    max_step_t: float = 0.15, max_step_r: float = 0.35):
+                    max_step_t: float = 0.15, max_step_r: float = 0.35,
+                    stamp=None):
     """Two-stage tracking against the local map (`TrackWithMotionModel` ->
     `TrackLocalMap`): stage 1 optimizes the windowed motion-model matches and
     the windowless strict-ratio matches as separate hypotheses from the
@@ -239,7 +240,13 @@ def track_local_map(cam, ms: MapState, feats: PointFeatures, T_last,
     edges.
 
     With `update_stats`, returns (result, ms) after updating the map's
-    found/visible counters in place (`update_point_stats`)."""
+    found/visible counters in place (`update_point_stats`).
+
+    `stamp(name, end=False)`, where given, marks the step's stages for the
+    tracer (`utils/trace.py`): `track.search_a`, `track.pose_a`,
+    `track.search_b`, `track.pose_b`, `track.finish`, then `track.end`."""
+    stamp = _no_stamp if stamp is None else stamp
+    stamp("track.search_a")
     device = T_last.device
     P = ms.pt_xyz.shape[0]
     if velocity is None:
@@ -262,6 +269,7 @@ def track_local_map(cam, ms: MapState, feats: PointFeatures, T_last,
     g_ok = (g_best <= TH_LOW) & (g_best.to(torch.float32)
                                  < 0.7 * g_second.to(torch.float32))
     g_ok = hamming.dedup_by_target(g_idx, g_ok, g_best, P)
+    stamp("track.pose_a")
     res_a = pose_opt.pose_optimize(
         cam, T_pred, pose_opt.PoseObs(ms.pt_xyz[idx_w], feats.uv_un,
                                       sigma2_kp, m_w, *no_lines, **stereo),
@@ -275,6 +283,7 @@ def track_local_map(cam, ms: MapState, feats: PointFeatures, T_last,
     T_mid = torch.where(take_a, res_a.T, torch.where(take_b, res_b.T, T_pred))
 
     # stage 2: tight local-map search from the refined pose
+    stamp("track.search_b")
     idx2, m2, visible = _match_against_map(cam, ms, feats, T_mid,
                                            scale_factors, th, False,
                                            n_levels, scale, pt_mask=local)
@@ -293,10 +302,12 @@ def track_local_map(cam, ms: MapState, feats: PointFeatures, T_last,
         ln_visible = torch.zeros(ms.ln_valid.shape, dtype=torch.bool,
                                  device=device)
         lines = no_lines
+    stamp("track.pose_b")
     res2 = pose_opt.pose_optimize(
         cam, T_mid, pose_opt.PoseObs(xyz2, feats.uv_un, sigma2_kp, m2,
                                      *lines, **stereo),
         rounds=4, iters_per_round=10)
+    stamp("track.finish")
 
     # catastrophic-jump guard, relative to the mean depth of the matches
     z2 = se3.transform(T_mid, xyz2)[:, 2]
@@ -346,8 +357,13 @@ def track_local_map(cam, ms: MapState, feats: PointFeatures, T_last,
         T_rel=T_final @ se3.se3_inv(_row(ms.kf_T, k_last)),
     )
     if update_stats:
-        return result, update_point_stats(ms, result)
-    return result
+        ms = update_point_stats(ms, result)
+    stamp("track", end=True)
+    return (result, ms) if update_stats else result
+
+
+def _no_stamp(name, end=False):
+    pass
 
 
 def match_frames(feats1: PointFeatures, feats2: PointFeatures,

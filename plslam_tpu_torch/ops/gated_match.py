@@ -17,26 +17,21 @@ plain version take it.
 
 The kernel is compiled with nvcc at first use into `build/plslam_tpu_torch/`
 under the repository root, named by the hash of its source, so an edited
-source rebuilds. It exposes a plain C entry point loaded with ctypes.
+source rebuilds (`utils/cuda_build.py`). It exposes a plain C entry point
+loaded with ctypes.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import time
 from pathlib import Path
 
 import torch
 
 from . import hamming
 from ..models import step_graph
+from ..utils import cuda_build
+from ..utils.cuda_build import CSRC_DIR
 
-CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "plslam_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
@@ -44,39 +39,11 @@ MAX_POINTS = 1 << 21   # the kernel's (distance, index) keys hold 22-bit indices
 _lib = None
 
 
-def _nvcc() -> str:
-    for cand in (shutil.which("nvcc"),
-                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                              "bin", "nvcc")):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: building the gated Hamming kernel "
-                       "needs the CUDA toolkit (set CUDA_HOME)")
-
-
 def build(verbose: bool = False) -> Path:
     """Compile `csrc/gated_hamming.cu` into a shared library (or find it
     already built for this source hash) and return its path."""
-    src = CSRC_DIR / "gated_hamming.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    out = BUILD_DIR / f"gated_hamming_{digest.hexdigest()[:16]}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", tmp, str(src)]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    if verbose:
-        print(f"built {out.name} in {time.perf_counter() - t0:.1f} s\n"
-              f"{proc.stderr}", end="")
-    os.replace(tmp, out)
-    return out
+    return cuda_build.build(CSRC_DIR / "gated_hamming.cu", NVCC_FLAGS,
+                            verbose)
 
 
 def _load():

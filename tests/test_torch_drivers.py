@@ -80,10 +80,14 @@ def test_mono_tum(sequence, tmp_path, monkeypatch, chunked):
     textured.write_tum_sequence(str(seq), sequence["frames"],
                                 [i / 30.0 for i in range(N)])
     (tmp_path / "s.yaml").write_text(SETTINGS)
-    argv = [tmp_path / "s.yaml", seq, "traj.txt"]
+    argv = [tmp_path / "s.yaml", seq, "traj.txt", "--trace", "trace.json"]
     if chunked:
         argv += ["--chunked", chunked]
     assert _run("mono_tum", argv, tmp_path, monkeypatch) == 0
+    events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
+    spans = [e for e in events if e["ph"] == "X"]
+    assert {"frame", "initialize", "local_ba"} <= {e["name"] for e in spans}
+    assert all(e["dur"] >= 0 for e in spans)
     rows = _tum_rows(tmp_path / "traj.txt")
     assert len(rows) >= 4
     assert {round(float(r[0]) * 30) for r in rows} <= set(range(N))
